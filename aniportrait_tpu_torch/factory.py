@@ -119,7 +119,7 @@ def cast(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     return model
 
 
-def build_models(size: str = "full", device="cpu", dtype=torch.float32, seed: int = 0,
+def build_models(size: str = "full", device="cuda", dtype=torch.float32, seed: int = 0,
                  use_motion_module: bool = True,
                  scheduler_kwargs: Dict[str, Any] | None = None) -> PipelineModules:
     """The five models at ``size`` on ``device`` in ``dtype``, eval mode, no
@@ -137,7 +137,7 @@ def build_models(size: str = "full", device="cpu", dtype=torch.float32, seed: in
     )
 
 
-def build_pipeline(size: str = "full", device="cpu", dtype=torch.float32, seed: int = 0,
+def build_pipeline(size: str = "full", device="cuda", dtype=torch.float32, seed: int = 0,
                    **pipeline_kwargs):
     from aniportrait_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
 

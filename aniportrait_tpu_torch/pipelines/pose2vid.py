@@ -106,9 +106,9 @@ class Pose2VideoPipeline:
         timesteps = [int(t) for t in sched.timesteps(steps)]
         do_cfg = guidance_scale > 1.0
         if windowed and video_length > self.context_frames:
-            # the JAX package's numpy window tables (one source for both
-            # packages); imported here so a whole-clip run loads nothing of it
-            from aniportrait_tpu.pipelines.context import uniform_context_windows
+            from aniportrait_tpu_torch.pipelines.context import (
+                uniform_context_windows,
+            )
 
             windows = uniform_context_windows(
                 0, video_length, self.context_frames, self.context_stride,

@@ -1,11 +1,12 @@
 """JAX parameter trees -> the port's ``state_dict``.
 
 Walks the port module's own keys (the reference torch checkpoint names),
-finds each key's rule in ``aniportrait_tpu/weights/convert.py`` (the one
-source of the torch <-> flax naming) and applies the inverse of the rule's
+finds each key's rule in ``weights/convert.py`` (the port's copy of the JAX
+package's torch <-> flax naming rules) and applies the inverse of the rule's
 layout transform.  Keys a rule marks ``skip`` (the motion modules' ``pe``
 tables, BatchNorm's ``num_batches_tracked``) keep the module's own value.
-``convert.py`` imports only numpy, so this module pulls in no JAX.
+Transforms are looked up by name, so rule lists built by either package's
+``convert.py`` apply.
 """
 
 from __future__ import annotations
@@ -17,15 +18,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from aniportrait_tpu.weights import convert as cv
+from aniportrait_tpu_torch.weights import convert as cv
 
-# inverse layout transforms (flax -> torch) of convert.py's rules
+# inverse layout transforms (flax -> torch) of convert.py's rules, by name
 INVERSE = {
-    cv.t_none: lambda w: w,
-    cv.t_linear: lambda w: w.T,
-    cv.t_conv2d: lambda w: w.transpose(3, 2, 0, 1),
-    cv.t_conv1x1_dense: lambda w: w.T[:, :, None, None],
-    cv.t_conv1d: lambda w: w.transpose(2, 1, 0),
+    "t_none": lambda w: w,
+    "t_linear": lambda w: w.T,
+    "t_conv2d": lambda w: w.transpose(3, 2, 0, 1),
+    "t_conv1x1_dense": lambda w: w.T[:, :, None, None],
+    "t_conv1d": lambda w: w.transpose(2, 1, 0),
 }
 
 
@@ -57,7 +58,7 @@ def state_dict_from_jax(module: nn.Module, rules: List[cv.Rule],
                     arr = _lookup(batch_stats, path[len("stats:"):])
                 else:
                     arr = _lookup(params, path)
-                arr = np.ascontiguousarray(INVERSE[tf](arr))
+                arr = np.ascontiguousarray(INVERSE[tf.__name__](arr))
                 if arr.shape != tuple(current.shape):
                     raise ValueError(
                         f"{key}: converted shape {arr.shape} != {tuple(current.shape)}"
