@@ -1,5 +1,5 @@
 // Flash-attention forward for Hopper (sm_90a): one templated kernel behind
-// three entry points of ops/kernels/flash.py.
+// four entry points of ops/kernels/flash.py.
 //
 // Replaces these Pallas TPU kernels of aniportrait_tpu/ops/pallas_attention.py:
 //   K1  _tok_flash_banked_impl / _tokf_banked_kernel: token-layout (B, S, C)
@@ -14,6 +14,11 @@
 //   K4  _flash_nopad / _fwd_kernel_nopad: (B, S, H, D) attention, the same
 //       memory as (B, S, H*D).  Rows flagged in drop_tail attend only to the
 //       first kv_split columns.
+//   K5a _flash_fwd_impl / _fwd_kernel with want_lse: K4 that also writes the
+//       float32 log-sum-exp of every (row, head) for the backward
+//       (csrc/flash_bwd.cu).  The kernel already keeps the running max m and
+//       denominator l per row in registers, so the LSE is m + log(l); a fully
+//       masked row gets output 0 and LSE 0, the TPU kernel's contract.
 //
 // What bounds it on an H100: at the main path's shapes (S = 4096, d = 40,
 // 8 heads, 16 rows; 4096 x 8192 logits per head for K1) the work is
@@ -58,6 +63,7 @@ struct FlashArgs {
   const void* vb;
   const int32_t* drop;  // (B,) drop_tail flags or nullptr
   void* o;
+  float* lse;           // (B, heads, sq) float32, written when LSE is set
   int batch, sq, skv, sbank, heads, d, rep, kv_split;
   float scale_log2;
 };
@@ -67,7 +73,7 @@ constexpr size_t flash_smem_bytes() {
   return sizeof(float) * (DP * LDQ + DP * LDK + BKV * DP + BKV * LDP);
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool LSE>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FlashArgs a) {
   constexpr int DPT = DP / 16;
   extern __shared__ float smem[];
@@ -209,6 +215,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FlashArgs a) {
     const int r = q0 + ty * 8 + i;
     if (r >= a.sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    if (LSE && tx == 0) {
+      // m is in base-2 units (q carries log2(e)): lse = ln 2 * (m + log2 l)
+      a.lse[((size_t)b * a.heads + h) * a.sq + r] =
+          l[i] > 0.f ? kLn2 * (m[i] + log2f(l[i])) : 0.f;
+    }
 #pragma unroll
     for (int c = 0; c < DPT; ++c) {
       const int col = tx * DPT + c;
@@ -217,37 +228,26 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FlashArgs a) {
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool LSE>
 cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
   constexpr size_t smem = flash_smem_bytes<DP>();
-  cudaError_t err = set_smem(flash_fwd_kernel<T, DP>, smem);
+  cudaError_t err = set_smem(flash_fwd_kernel<T, DP, LSE>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.sq + BQ - 1) / BQ, a.heads, a.batch);
-  flash_fwd_kernel<T, DP><<<grid, THREADS, smem, stream>>>(a);
+  flash_fwd_kernel<T, DP, LSE><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t launch_lse(const FlashArgs& a, cudaStream_t stream) {
+  return a.lse != nullptr ? launch<T, DP, true>(a, stream) : launch<T, DP, false>(a, stream);
 }
 
 template <typename T>
 cudaError_t dispatch(const FlashArgs& a, cudaStream_t stream) {
-  switch ((a.d + 15) / 16) {
-    case 1: return launch<T, 16>(a, stream);
-    case 2: return launch<T, 32>(a, stream);
-    case 3: return launch<T, 48>(a, stream);
-    case 4: return launch<T, 64>(a, stream);
-    case 5: return launch<T, 80>(a, stream);
-    case 6: return launch<T, 96>(a, stream);
-    case 7: return launch<T, 112>(a, stream);
-    case 8: return launch<T, 128>(a, stream);
-    case 9: return launch<T, 144>(a, stream);
-    case 10: return launch<T, 160>(a, stream);
-    case 11: return launch<T, 176>(a, stream);
-    case 12: return launch<T, 192>(a, stream);
-    case 13: return launch<T, 208>(a, stream);
-    case 14: return launch<T, 224>(a, stream);
-    case 15: return launch<T, 240>(a, stream);
-    case 16: return launch<T, 256>(a, stream);
-    default: return cudaErrorInvalidValue;
-  }
+#define ANIPORTRAIT_CASE(DP) return launch_lse<T, DP>(a, stream);
+  ANIPORTRAIT_HEAD_DIM_SWITCH(a.d, ANIPORTRAIT_CASE)
+#undef ANIPORTRAIT_CASE
 }
 
 }  // namespace
@@ -256,15 +256,16 @@ cudaError_t dispatch(const FlashArgs& a, cudaStream_t stream) {
 // q, k, v, o: (batch, S, heads * d) token layout, contiguous.
 // kb, vb: (batch / rep, sbank, heads * d) or null (no bank segment).
 // drop: (batch,) int32 or null; flagged rows attend to keys [0, kv_split).
+// lse: (batch, heads, sq) float32 or null (not written).
 // scale: the natural softmax scale.  Returns a cudaError_t code.
 extern "C" int aniportrait_flash_fwd(int dtype, const void* q, const void* k, const void* v,
                                      const void* kb, const void* vb, const void* drop, void* o,
-                                     int batch, int sq, int skv, int sbank, int heads, int d,
-                                     int rep, int kv_split, float scale, void* stream) {
+                                     void* lse, int batch, int sq, int skv, int sbank, int heads,
+                                     int d, int rep, int kv_split, float scale, void* stream) {
   using namespace aniportrait;
   FlashArgs a{q, k, v, kb, vb, static_cast<const int32_t*>(drop), o,
-              batch, sq, skv, sbank, heads, d, rep, kv_split,
-              scale * 1.4426950408889634f};
+              static_cast<float*>(lse), batch, sq, skv, sbank, heads, d, rep, kv_split,
+              scale * kLog2e};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16) return static_cast<int>(dispatch<__nv_bfloat16>(a, st));
   if (dtype == kFloat32) return static_cast<int>(dispatch<float>(a, st));

@@ -137,6 +137,23 @@ def build_models(size: str = "full", device="cuda", dtype=torch.float32, seed: i
     )
 
 
+def build_training_models(size: str = "full", device="cuda", seed: int = 0,
+                          frozen_dtype=torch.bfloat16,
+                          scheduler_kwargs: Dict[str, Any] | None = None
+                          ) -> PipelineModules:
+    """The five models of stage-1 training on ``device``, weights drawn
+    from ``seed``: ReferenceNet, the denoising UNet without motion modules
+    and the PoseGuider in float32 (the trainables' master weights), VAE and
+    CLIP in ``frozen_dtype``, eval mode and no gradients.  Which parameters
+    train is set by ``train.train_step.apply_freeze``."""
+    modules = build_models(size, device, torch.float32, seed,
+                           use_motion_module=False,
+                           scheduler_kwargs=scheduler_kwargs)
+    cast(modules.vae, frozen_dtype)
+    cast(modules.clip, frozen_dtype)
+    return modules
+
+
 def build_pipeline(size: str = "full", device="cuda", dtype=torch.float32, seed: int = 0,
                    **pipeline_kwargs):
     from aniportrait_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline

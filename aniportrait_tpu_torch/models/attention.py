@@ -15,6 +15,7 @@ from torch import nn
 
 from aniportrait_tpu_torch.ops.attention import (
     banked_attention,
+    dropped_bank_attention,
     temporal_attention,
     token_attention,
 )
@@ -44,18 +45,24 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(cross_attention_dim or query_dim, inner, bias=bias)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
-    def forward(self, x, context=None, extra_kv=None, extra_repeat: int = 1):
+    def forward(self, x, context=None, extra_kv=None, extra_repeat: int = 1,
+                drop_tail=None):
         """x: (B, Sq, C) tokens, or (b, f, s, c) natural-layout activations
         for temporal self attention along f.  context: (B, Skv, Ckv) or None
         (self attention).  extra_kv: (B // extra_repeat, L, C) reference-bank
         tokens appended to the keys after projection (projected once per
-        bank row, not per frame row)."""
+        bank row, not per frame row).  drop_tail: (B,) bool, rows that
+        ignore the bank."""
         context = x if context is None else context
         q = self.to_q(x)
         k = self.to_k(context)
         v = self.to_v(context)
         if x.ndim == 4:
             out = temporal_attention(q, k, v, self.heads)
+        elif extra_kv is not None and drop_tail is not None:
+            out = dropped_bank_attention(
+                q, k, v, self.to_k(extra_kv), self.to_v(extra_kv), self.heads,
+                extra_repeat, drop_tail)
         elif extra_kv is not None:
             out = banked_attention(q, k, v, self.to_k(extra_kv),
                                    self.to_v(extra_kv), self.heads, extra_repeat)
@@ -110,11 +117,15 @@ class SpatialTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, x, context=None, ref_bank=None, video_length: int = 1,
-                capture_bank: bool = False, drop_mode: str = "none"):
+                capture_bank: bool = False, drop_mode: str = "none",
+                drop_ref=None):
         """x: (B * F, S, C) tokens; context: (B * F, S_ctx, ctx_dim);
         ref_bank: (B, L, C) reference tokens, unrepeated.  drop_mode: 'none'
-        (every row reads the bank) or 'first_half' (CFG layout: the first
-        half of the rows, the unconditional ones, attend to themselves only).
+        (every row reads the bank), 'first_half' (CFG layout: the first
+        half of the rows, the unconditional ones, attend to themselves only)
+        or 'traced' (the rows of the batch entries flagged in ``drop_ref``
+        (B,) ignore the bank, through the masked attention; the training
+        path's CFG dropout).
         Returns (x, the post-norm1 hidden states if capture_bank else None)."""
         h = self.norm1(x)
         bank = h if capture_bank else None
@@ -128,11 +139,15 @@ class SpatialTransformerBlock(nn.Module):
             out_c = self.attn1(h[half:], extra_kv=ref_bank[half_b:],
                                extra_repeat=video_length)
             x = x + torch.cat([out_u, out_c], dim=0)
+        elif drop_mode == "traced":
+            if drop_ref is None:
+                row_drop = torch.zeros(h.shape[0], dtype=torch.bool, device=h.device)
+            else:
+                row_drop = drop_ref.to(torch.bool).repeat_interleave(video_length)
+            x = x + self.attn1(h, extra_kv=ref_bank, extra_repeat=video_length,
+                               drop_tail=row_drop)
         else:
-            raise NotImplementedError(
-                f"drop_mode={drop_mode!r} (the training path's traced bank "
-                "mask) is not ported yet"
-            )
+            raise ValueError(f"unknown drop_mode {drop_mode!r}")
         if self.attn2 is not None:
             x = x + self.attn2(self.norm2(x), context=context)
         x = x + self.ff(self.norm3(x))

@@ -5,8 +5,9 @@ Stem of conv+BatchNorm+ReLU layers (``conv_layers``), a zero-init 1x1
 projection and a learnable scalar ``scale``, then a pyramid
 (``conv_layers_1..n``), each stage followed by a self-attention transformer
 (``cross_attn1..n``; 16 heads x 88 at full size).  As in the JAX package the
-reference's dead reference-pose path is not run.  BatchNorm runs in eval
-mode on float32 running statistics.
+reference's dead reference-pose path is not run.  BatchNorm computes in
+float32: in eval mode on the running statistics, in train mode on the batch's
+with flax's semantics (see :class:`BatchNorm2d`).
 """
 
 from __future__ import annotations
@@ -27,13 +28,30 @@ from aniportrait_tpu_torch.models.transformer_spatial import (
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Eval-mode BatchNorm computed in float32, output in the input's dtype."""
+    """BatchNorm computed in float32, output in the input's dtype.
+
+    Train mode follows flax's ``nn.BatchNorm`` (the JAX package's,
+    ``aniportrait_tpu/models/pose_guider.py:51-57``), not torch's: the batch
+    variance is the biased ``E[x^2] - E[x]^2`` (clipped at 0) both for the
+    normalisation and for the running update, which moves the statistics by
+    ``momentum`` (0.1 here, flax's 0.9 on the old value).  Torch's own
+    update uses the unbiased variance."""
 
     def forward(self, x):
-        return F.batch_norm(
-            x.float(), self.running_mean.float(), self.running_var.float(),
-            self.weight.float(), self.bias.float(), False, 0.0, self.eps,
-        ).to(x.dtype)
+        xf = x.float()
+        if not self.training:
+            return F.batch_norm(
+                xf, self.running_mean.float(), self.running_var.float(),
+                self.weight.float(), self.bias.float(), False, 0.0, self.eps,
+            ).to(x.dtype)
+        mean = xf.mean((0, 2, 3))
+        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+        mul = self.weight.float() * torch.rsqrt(var + self.eps)
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
+        return y.to(x.dtype)
 
 
 def conv_bn_relu(c_in: int, c_out: int, kernel: int, stride: int) -> List[nn.Module]:

@@ -43,9 +43,12 @@ class SpatialTransformer(nn.Module):
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
     def forward(self, x, video_length: int, context=None, ref_bank=None,
-                capture_bank: bool = False, drop_mode: str = "none"):
+                capture_bank: bool = False, drop_mode: str = "none",
+                drop_ref=None):
         """x: (b * f, c, h, w); context: (b, S_ctx, ctx_dim) (repeated over
-        frames here); ref_bank: (b, L, c).  Returns (x, captured banks)."""
+        frames here); ref_bank: (b, L, c); drop_ref: (b,) bool, the batch
+        entries that ignore the bank under ``drop_mode='traced'``.  Returns
+        (x, captured banks)."""
         bf, c, h, w = x.shape
         hid = conv1x1_tokens(self.proj_in, to_tokens(self.norm(x)))
         if context is not None and context.shape[0] != bf:
@@ -53,7 +56,7 @@ class SpatialTransformer(nn.Module):
         banks = []
         for block in self.transformer_blocks:
             hid, bank = block(hid, context, ref_bank, video_length, capture_bank,
-                              drop_mode)
+                              drop_mode, drop_ref)
             if bank is not None:
                 banks.append(bank)
         hid = conv1x1_tokens(self.proj_out, hid)

@@ -120,11 +120,13 @@ class AniUNet(nn.Module):
                 pose_cond_fea: Optional[List[torch.Tensor]] = None,
                 ref_banks: Optional[Dict[str, torch.Tensor]] = None,
                 capture_banks: bool = False, drop_mode: str = "none",
-                mode: str = "full", motion_windows=None):
+                mode: str = "full", motion_windows=None, drop_ref=None):
         """
         sample: (b, f, c_in, h, w) latents; timesteps: (b,);
         encoder_hidden_states: (b, S, ctx_dim); pose_cond_fea: list of
-        (b, f, c_k, h_k, w_k); ref_banks: {key: (b, L, c)}.
+        (b, f, c_k, h_k, w_k); ref_banks: {key: (b, L, c)}; drop_mode:
+        'none', 'first_half' or 'traced' (see SpatialTransformerBlock), the
+        last with drop_ref (b,) bool, the CFG-dropped batch entries.
         Returns (output (b, f, c_out, h, w) or None, banks dict).
         """
         if mode != "full":
@@ -142,7 +144,7 @@ class AniUNet(nn.Module):
             x, captured = attn(
                 x, f, encoder_hidden_states,
                 None if ref_banks is None else ref_banks.get(key),
-                capture_banks, drop_mode,
+                capture_banks, drop_mode, drop_ref,
             )
             if captured:
                 banks[key] = captured[0]

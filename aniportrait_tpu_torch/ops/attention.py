@@ -13,17 +13,23 @@ pure function of the shapes:
 * ``"K3"``: temporal attention on natural ``(b, f, s, c)`` activations
   (:func:`ops.kernels.nat_temporal`);
 * ``"K4"``: any other attention with ``Sq * Skv >= FLASH_MIN_LOGITS``
-  and head dim <= 256 (:func:`ops.kernels.flash_attention`);
+  and head dim <= 256, with or without the bank-drop mask
+  (:func:`ops.kernels.flash_attention`);
 * ``"K6"``: many short sequences (the JAX package's packed small-sequence
   kernel), not ported yet: a CUDA call raises;
 * ``"single_kv"``: one key (the CLIP image token), whose softmax is 1, so the
   output is V broadcast;
 * ``"sdpa"``: what the JAX package leaves to XLA (CLIP, the VAE's d=512
-  head, everything below the flash threshold):
+  head, everything below the flash threshold, with the bank-drop mask as a
+  boolean mask where the JAX package adds a -1e9 bias):
   ``F.scaled_dot_product_attention``.
 
-On a CPU tensor every kernel wrapper runs its plain version, so the CPU
-path computes the same routes in plain PyTorch.
+Every kernel route goes through the kernel's ``torch.autograd.Function``
+(``ops/kernels/autograd.py``): where an input needs a gradient, K1, K2 and K4
+keep what their backward needs and the backward runs K5a and K5b (the flash
+forward with LSE and the flash backward).  On a CPU tensor every kernel
+wrapper runs its plain version, so the CPU path computes the same routes in
+plain PyTorch.
 """
 
 from __future__ import annotations
@@ -33,7 +39,12 @@ import math
 import torch
 import torch.nn.functional as F
 
-from aniportrait_tpu_torch.ops import kernels
+from aniportrait_tpu_torch.ops.kernels.autograd import (
+    FlashAttention,
+    NatTemporal,
+    TokFlash,
+    TokFlashBanked,
+)
 
 # Same thresholds as aniportrait_tpu/ops/attention.py
 FLASH_MIN_LOGITS = 1 << 20
@@ -50,12 +61,16 @@ def temporal_pack(frames: int) -> int:
     return 1 << int(math.log2(128 // frames)) if 2 <= frames <= 64 else 0
 
 
-def sdpa_route(batch: int, sq: int, skv: int, heads: int, head_dim: int) -> str:
+def sdpa_route(batch: int, sq: int, skv: int, heads: int, head_dim: int,
+               masked: bool = False) -> str:
     """Route of the generic ``(B, S, H, D)`` entry
-    (``aniportrait_tpu/ops/attention.py:180-256``)."""
-    if skv == 1:
+    (``aniportrait_tpu/ops/attention.py:180-256``); ``masked``: the call
+    carries the bank-drop mask, which only the flash kernel and the plain
+    attention take."""
+    if not masked and skv == 1:
         return "single_kv"
-    if sq == skv and 2 <= sq <= SMALL_SEQ_MAX and batch * heads >= SMALL_SEQ_MIN_ROWS:
+    if (not masked and sq == skv and 2 <= sq <= SMALL_SEQ_MAX
+            and batch * heads >= SMALL_SEQ_MIN_ROWS):
         return "K6"
     if sq * skv >= FLASH_MIN_LOGITS and head_dim <= MAX_FLASH_HEAD_DIM:
         return "K4"
@@ -88,11 +103,17 @@ def attention_route(batch: int, sq: int, skv: int, heads: int, head_dim: int,
     return sdpa_route(batch, sq, skv, heads, head_dim)
 
 
-def scaled_dot_product_attention(q, k, v):
+def scaled_dot_product_attention(q, k, v, kv_split=None, drop_tail=None):
     """Multi-head attention over ``(B, S, H, D)`` tensors; returns
-    ``(B, Sq, H, D)`` in q's dtype."""
+    ``(B, Sq, H, D)`` in q's dtype.  ``kv_split``/``drop_tail``: the keys
+    are ``[self (kv_split) | bank]`` and the rows flagged in ``drop_tail``
+    (B,) ignore the bank."""
     b, sq, h, d = q.shape
-    route = sdpa_route(b, sq, k.shape[1], h, d)
+    skv = k.shape[1]
+    masked = kv_split is not None and drop_tail is not None
+    route = sdpa_route(b, sq, skv, h, d, masked)
+    if route == "K4":
+        return FlashAttention.apply(q, k, v, *((drop_tail, kv_split) if masked else ()))
     if route == "single_kv":
         return v.expand(b, sq, h, d).to(q.dtype)
     if route == "K6" and q.is_cuda:
@@ -100,10 +121,13 @@ def scaled_dot_product_attention(q, k, v):
             "attention of many short sequences routes to K6 (ctg_packed, "
             "aniportrait_tpu/ops/pallas_attention.py:1918), not ported yet"
         )
-    if route == "K4":
-        return kernels.flash_attention(q, k, v)
+    keep = None
+    if masked:
+        bank = torch.arange(skv, device=q.device) >= kv_split
+        drop = drop_tail.to(device=q.device, dtype=torch.bool)
+        keep = ~(drop[:, None, None, None] & bank)  # (B, 1, 1, Skv)
     out = F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=keep
     )
     return out.transpose(1, 2)
 
@@ -113,7 +137,7 @@ def token_attention(q, k, v, heads: int):
     b, sq, c = q.shape
     skv, d = k.shape[1], c // heads
     if attention_route(b, sq, skv, heads, d) == "K2":
-        return kernels.tok_flash(q, k, v, heads)
+        return TokFlash.apply(q, k, v, heads)
     out = scaled_dot_product_attention(
         q.reshape(b, sq, heads, d), k.reshape(b, skv, heads, d),
         v.reshape(b, skv, heads, d),
@@ -129,10 +153,27 @@ def banked_attention(q, k, v, kb, vb, heads: int, rep: int):
         raise ValueError(f"bank rows {kb.shape[0]} x rep {rep} != batch {b}")
     route = attention_route(b, sq, k.shape[1], heads, c // heads, bank=kb.shape[1])
     if route == "K1":
-        return kernels.tok_flash_banked(q, k, v, kb, vb, heads, rep)
+        return TokFlashBanked.apply(q, k, v, kb, vb, heads, rep)
     k = torch.cat([k, kb.repeat_interleave(rep, dim=0)], dim=1)
     v = torch.cat([v, vb.repeat_interleave(rep, dim=0)], dim=1)
     return token_attention(q, k, v, heads)
+
+
+def dropped_bank_attention(q, k, v, kb, vb, heads: int, rep: int, drop_tail):
+    """:func:`banked_attention` where the rows flagged in ``drop_tail`` (B,)
+    ignore the bank (the JAX package's traced CFG-dropout mask).  As there
+    (``aniportrait_tpu/models/attention.py:89-136``) the banked kernel is
+    skipped: the concat goes through the masked flash call."""
+    b, sq, c = q.shape
+    s, d = k.shape[1], c // heads
+    k = torch.cat([k, kb.repeat_interleave(rep, dim=0)], dim=1)
+    v = torch.cat([v, vb.repeat_interleave(rep, dim=0)], dim=1)
+    skv = k.shape[1]
+    out = scaled_dot_product_attention(
+        q.reshape(b, sq, heads, d), k.reshape(b, skv, heads, d),
+        v.reshape(b, skv, heads, d), kv_split=s, drop_tail=drop_tail,
+    )
+    return out.reshape(b, sq, c)
 
 
 def temporal_attention(q, k, v, heads: int):
@@ -141,7 +182,7 @@ def temporal_attention(q, k, v, heads: int):
     b, f, s, c = q.shape
     d = c // heads
     if attention_route(b, s, s, heads, d, frames=f) == "K3":
-        out = kernels.nat_temporal(
+        out = NatTemporal.apply(
             q.reshape(b * f, s, c), k.reshape(b * f, s, c),
             v.reshape(b * f, s, c), f, heads, math.log2(math.e) / math.sqrt(d),
         )

@@ -4,6 +4,8 @@ versions.  Sources: ``aniportrait_tpu_torch/csrc``; build: ``build.py``."""
 
 from aniportrait_tpu_torch.ops.kernels.flash import (
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_fwd_lse,
     tok_flash,
     tok_flash_banked,
 )
@@ -15,6 +17,8 @@ KERNELS = {
     "K2": tok_flash,
     "K3": nat_temporal,
     "K4": flash_attention,
+    "K5a": flash_attention_fwd_lse,
+    "K5b": flash_attention_bwd,
 }
 
 

@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels of ``aniportrait_tpu_torch/csrc``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
-so a build takes seconds).  The build runs at first use, into
+Each source is compiled with ``nvcc`` for ``sm_90a`` to an object, all
+sources at once in parallel processes, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds).  The build runs at first use, into
 ``build/kernels/`` under the repository root, keyed by a hash of the sources
 and flags: a changed source gets a new library, an unchanged one is reused.
 Nothing here runs at import time.
@@ -25,7 +26,7 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "--ptxas-options=-v",
 )
 
@@ -35,10 +36,14 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # dtype, q, k, v, kb, vb, drop, o, batch, sq, skv, sbank, heads, d, rep,
-    # kv_split, scale, stream
-    "aniportrait_flash_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _I, _I, ctypes.c_float, _P],
+    # dtype, q, k, v, kb, vb, drop, o, lse, batch, sq, skv, sbank, heads, d,
+    # rep, kv_split, scale, stream
+    "aniportrait_flash_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    # dtype, q, k, v, do, lse, delta, drop, dq, dk, dv, batch, sq, skv, heads,
+    # d, kv_split, scale, stream
+    "aniportrait_flash_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # dtype, q, k, v, o, batch, frames, s, heads, d, scale, stream
     "aniportrait_temporal_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  ctypes.c_float, _P],
@@ -73,21 +78,37 @@ def build() -> Path:
     """Compile the kernels if no library for the current sources exists;
     return the library's path.  The compiler's report (registers, shared
     memory, spills per kernel) is kept beside it as ``build.log``."""
-    lib = BUILD_DIR / f"libaniportrait_kernels_{source_hash()}.so"
+    tag = source_hash()
+    lib = BUILD_DIR / f"libaniportrait_kernels_{tag}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    stem = f"{tag}.{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    report, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        report.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out[-4000:])
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr
-    )
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}"
-        )
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        report.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.stderr[-4000:])
+    (BUILD_DIR / "build.log").write_text("\n".join(report))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp.replace(lib)
     return lib
 

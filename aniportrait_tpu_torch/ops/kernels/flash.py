@@ -1,8 +1,9 @@
-"""Wrappers of the flash-attention CUDA kernel (``csrc/flash_attn.cu``) and
-their plain PyTorch versions.
+"""Wrappers of the flash-attention CUDA kernels (``csrc/flash_attn.cu``,
+``csrc/flash_bwd.cu``) and their plain PyTorch versions.
 
-Three entry points share the kernel, one per Pallas kernel they replace
-(``aniportrait_tpu/ops/pallas_attention.py``):
+Five entry points, one per Pallas kernel they replace
+(``aniportrait_tpu/ops/pallas_attention.py``); the first four share the
+forward kernel:
 
 * :func:`tok_flash_banked` (K1, ``_tok_flash_banked_impl``): token layout
   ``(B, S, C)`` attention over the row's own keys followed by a reference
@@ -12,6 +13,12 @@ Three entry points share the kernel, one per Pallas kernel they replace
   attention, heads sliced from ``C``.
 * :func:`flash_attention` (K4, ``_flash_nopad``): ``(B, S, H, D)`` attention;
   rows flagged in ``drop_tail`` ignore keys at or past ``kv_split``.
+* :func:`flash_attention_fwd_lse` (K5a, ``_flash_fwd_impl``): K4 that also
+  returns the float32 log-sum-exp ``(B, H, Sq)`` of every row and head.
+* :func:`flash_attention_bwd` (K5b, ``_flash_bwd_kernels``): dq, dk, dv of
+  K4's function from K5a's output and LSE.
+
+The gradients reach these through ``ops/kernels/autograd.py``.
 
 On a CPU tensor each wrapper returns its plain version; on a CUDA tensor it
 launches the kernel or raises.  Each counts its launches in ``.launches``.
@@ -27,17 +34,52 @@ MAX_HEAD_DIM = 256
 
 
 # ------------------------------------------------------------ plain versions
-def plain_attention_bshd(q, k, v, drop_tail=None, kv_split=None):
-    """Reference math of all three entry points: explicit einsum and a
-    float32 softmax over ``(B, S, H, D)`` operands, optional drop mask."""
+def _logits(q, k, drop_tail, kv_split):
+    """float32 ``(B, H, Sq, Skv)`` logits ``q k^T / sqrt(d)``; keys at or past
+    ``kv_split`` are -inf for the rows flagged in ``drop_tail``."""
     d = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d ** -0.5
     if drop_tail is not None:
         cols = torch.arange(k.shape[1], device=q.device) >= kv_split
-        mask = drop_tail.to(torch.bool)[:, None, None, None] & cols
+        mask = drop_tail.to(device=q.device, dtype=torch.bool)[:, None, None, None] & cols
         logits = logits.masked_fill(mask, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
+    return logits
+
+
+def plain_attention_bshd(q, k, v, drop_tail=None, kv_split=None):
+    """Reference math of the forward entry points: explicit einsum and a
+    float32 softmax over ``(B, S, H, D)`` operands, optional drop mask."""
+    probs = torch.softmax(_logits(q, k, drop_tail, kv_split), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
+
+
+def plain_attention_fwd_lse(q, k, v, drop_tail=None, kv_split=None):
+    """K5a's function: ``(out, lse)`` with ``lse`` float32 ``(B, H, Sq)``; a
+    fully masked row gets output 0 and LSE 0 (the TPU kernel's contract)."""
+    logits = _logits(q, k, drop_tail, kv_split)
+    lse = torch.logsumexp(logits, dim=-1)
+    lse = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    probs = torch.exp(logits - lse[..., None])
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
+    return out, lse
+
+
+def plain_attention_bwd(q, k, v, out, lse, do, drop_tail=None, kv_split=None):
+    """K5b's function, step by step as the kernels compute it: ``(dq, dk,
+    dv)`` in q's dtype.  ``p`` and ``ds`` are rounded to the operand dtype
+    before the products that take them, as the TPU kernels round them."""
+    dtype = q.dtype
+    scale = q.shape[-1] ** -0.5
+    do = do.to(dtype).float()
+    delta = (do * out.float()).sum(-1).permute(0, 2, 1)  # (B, H, Sq)
+    p = torch.exp(_logits(q, k, drop_tail, kv_split) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    p, ds = p.to(dtype).float(), ds.to(dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
 
 
 def _heads(x, heads):
@@ -70,25 +112,37 @@ def check_operands(name, tensors, head_dim):
             raise ValueError(f"{name}: operands must share device and dtype")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                f"{name}: no backward on CUDA yet (the flash backward, K5, "
-                "is not ported)"
-            )
     if not 1 <= head_dim <= MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {head_dim} unsupported (1 ... 256)")
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch(name, q, k, v, kb, vb, drop, out, batch, sq, skv, sbank, heads,
-            d, rep, kv_split):
-    lib = build.library()
-    ptr = lambda t: None if t is None else t.data_ptr()
-    err = lib.aniportrait_flash_fwd(
-        build.DTYPE_CODES[q.dtype], ptr(q), ptr(k), ptr(v), ptr(kb), ptr(vb),
-        ptr(drop), ptr(out), batch, sq, skv, sbank, heads, d, rep, kv_split,
-        float(d) ** -0.5, build.stream_handle(),
+            d, rep, kv_split, lse=None):
+    err = build.library().aniportrait_flash_fwd(
+        build.DTYPE_CODES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(kb),
+        _ptr(vb), _ptr(drop), _ptr(out), _ptr(lse), batch, sq, skv, sbank,
+        heads, d, rep, kv_split, float(d) ** -0.5, build.stream_handle(),
     )
     build.check(err, name)
+
+
+def _check_bshd(name, q, k, v, drop_tail, kv_split):
+    """Shape checks of the ``(B, S, H, D)`` entries; returns the kernel's
+    int32 drop flags (or None)."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    if k.shape != (b, skv, h, d) or v.shape != k.shape:
+        raise ValueError(f"{name}: shapes {q.shape} {k.shape} {v.shape}")
+    check_operands(name, (q, k, v), d)
+    if drop_tail is None:
+        return None
+    if kv_split is None or not 1 <= kv_split <= skv or drop_tail.shape != (b,):
+        raise ValueError(f"{name}: drop_tail needs 1 <= kv_split <= Skv")
+    return drop_tail.to(device=q.device, dtype=torch.int32).contiguous()
 
 
 # ---------------------------------------------------------------- wrappers
@@ -136,23 +190,63 @@ def flash_attention(q, k, v, drop_tail=None, kv_split=None):
     ``drop_tail`` set attend to keys ``[0, kv_split)`` only."""
     if q.device.type == "cpu":
         return plain_attention_bshd(q, k, v, drop_tail, kv_split)
+    drop = _check_bshd("flash_attention", q, k, v, drop_tail, kv_split)
     b, sq, h, d = q.shape
-    skv = k.shape[1]
-    if k.shape != (b, skv, h, d) or v.shape != k.shape:
-        raise ValueError(f"flash_attention: shapes {q.shape} {k.shape} {v.shape}")
-    check_operands("flash_attention", (q, k, v), d)
-    drop = None
-    if drop_tail is not None:
-        if kv_split is None or not 1 <= kv_split <= skv or drop_tail.shape != (b,):
-            raise ValueError("flash_attention: drop_tail needs 1 <= kv_split <= Skv")
-        drop = drop_tail.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
-    _launch("flash_attention", q, k, v, None, None, drop, out, b, sq, skv, 0,
-            h, d, 1, kv_split or 0)
+    _launch("flash_attention", q, k, v, None, None, drop, out, b, sq,
+            k.shape[1], 0, h, d, 1, kv_split or 0)
     flash_attention.launches += 1
     return out
+
+
+def flash_attention_fwd_lse(q, k, v, drop_tail=None, kv_split=None):
+    """K5a: :func:`flash_attention` that also returns the float32
+    log-sum-exp ``(B, H, Sq)`` of the scaled logits, the backward's
+    residual.  Returns ``(out, lse)``."""
+    if q.device.type == "cpu":
+        return plain_attention_fwd_lse(q, k, v, drop_tail, kv_split)
+    drop = _check_bshd("flash_attention_fwd_lse", q, k, v, drop_tail, kv_split)
+    b, sq, h, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
+    _launch("flash_attention_fwd_lse", q, k, v, None, None, drop, out, b, sq,
+            k.shape[1], 0, h, d, 1, kv_split or 0, lse)
+    flash_attention_fwd_lse.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, drop_tail=None, kv_split=None):
+    """K5b: gradients ``(dq, dk, dv)`` of :func:`flash_attention` at
+    ``(q, k, v)`` for the output gradient ``do``, from K5a's ``out`` and
+    ``lse``.  ``delta = rowsum(do * out)`` is a torch reduction here, as it
+    is XLA outside the kernels on the TPU."""
+    if q.device.type == "cpu":
+        return plain_attention_bwd(q, k, v, out, lse, do, drop_tail, kv_split)
+    drop = _check_bshd("flash_attention_bwd", q, k, v, drop_tail, kv_split)
+    b, sq, h, d = q.shape
+    do, out = do.to(q.dtype).contiguous(), out.contiguous()
+    if out.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, sq):
+        raise ValueError(
+            f"flash_attention_bwd: out {out.shape} do {do.shape} lse {lse.shape}"
+        )
+    check_operands("flash_attention_bwd", (q, out, do), d)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("flash_attention_bwd: lse must be contiguous float32")
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = build.library().aniportrait_flash_bwd(
+        build.DTYPE_CODES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(do),
+        _ptr(lse), _ptr(delta), _ptr(drop), _ptr(dq), _ptr(dk), _ptr(dv), b,
+        sq, k.shape[1], h, d, kv_split or 0, float(d) ** -0.5,
+        build.stream_handle(),
+    )
+    build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 tok_flash.launches = 0
 tok_flash_banked.launches = 0
 flash_attention.launches = 0
+flash_attention_fwd_lse.launches = 0
+flash_attention_bwd.launches = 0

@@ -1,3 +1,3 @@
-from .ddim import DDIMScheduler
+from .ddim import DDIMScheduler, compute_snr
 
-__all__ = ["DDIMScheduler"]
+__all__ = ["DDIMScheduler", "compute_snr"]

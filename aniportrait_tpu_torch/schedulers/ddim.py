@@ -1,6 +1,8 @@
 """DDIM scheduler (port of ``aniportrait_tpu/schedulers/ddim.py``): numpy
 tables, v-prediction, zero-terminal-SNR beta rescale, trailing / leading /
-linspace spacing.  ``step`` runs in float32 on the device of its inputs."""
+linspace spacing.  ``step`` runs in float32 on the device of its inputs; the
+training helpers (``add_noise``, ``get_velocity``, :func:`compute_snr`) take
+a tensor of integer timesteps, one per batch row."""
 
 from __future__ import annotations
 
@@ -92,3 +94,31 @@ class DDIMScheduler:
         prev = (float(np.sqrt(a_prev)) * pred_x0
                 + float(np.sqrt(np.float32(1.0) - a_prev)) * pred_eps)
         return prev.to(sample.dtype)
+
+    # ------------------------------------------------------------- training
+    def _coefficients(self, sample: torch.Tensor, t: torch.Tensor):
+        """sqrt(acp[t]) and sqrt(1 - acp[t]), float32 square roots, shaped
+        to broadcast over ``sample``'s batch axis, in its dtype."""
+        acp = torch.from_numpy(self.alphas_cumprod).to(t.device)[t.long()]
+        shape = (-1,) + (1,) * (sample.ndim - 1)
+        sa = torch.sqrt(acp).reshape(shape).to(sample.dtype)
+        sb = torch.sqrt(1.0 - acp).reshape(shape).to(sample.dtype)
+        return sa, sb
+
+    def add_noise(self, sample: torch.Tensor, noise: torch.Tensor,
+                  t: torch.Tensor) -> torch.Tensor:
+        sa, sb = self._coefficients(sample, t)
+        return sa * sample + sb * noise
+
+    def get_velocity(self, sample: torch.Tensor, noise: torch.Tensor,
+                     t: torch.Tensor) -> torch.Tensor:
+        """The v-prediction target sqrt(acp) * noise - sqrt(1 - acp) * x0."""
+        sa, sb = self._coefficients(sample, t)
+        return sa * noise - sb * sample
+
+
+def compute_snr(alphas_cumprod: np.ndarray, t: torch.Tensor) -> torch.Tensor:
+    """Signal-to-noise ratio acp / (1 - acp) per timestep, float32, for
+    Min-SNR loss weighting (reference ``train_stage_1.py:101-128``)."""
+    acp = torch.from_numpy(np.asarray(alphas_cumprod, np.float32)).to(t.device)[t.long()]
+    return acp / (1.0 - acp)

@@ -58,7 +58,7 @@ def state_dict_from_jax(module: nn.Module, rules: List[cv.Rule],
                     arr = _lookup(batch_stats, path[len("stats:"):])
                 else:
                     arr = _lookup(params, path)
-                arr = np.ascontiguousarray(INVERSE[tf.__name__](arr))
+                arr = np.array(INVERSE[tf.__name__](arr), order="C")  # writable copy
                 if arr.shape != tuple(current.shape):
                     raise ValueError(
                         f"{key}: converted shape {arr.shape} != {tuple(current.shape)}"

@@ -3,20 +3,34 @@
 
     python3 chip_smoke.py                  # all phases (what CI runs)
     python3 chip_smoke.py --phase kernels  # only the kernel phase
+    python3 chip_smoke.py --phase train    # only the two training phases
 
 Phases, each of which fails the run (nonzero exit) on any error:
 
 1. kernels: build the CUDA kernels from ``aniportrait_tpu_torch/csrc`` and
-   hold each of K1-K4 against its plain PyTorch version at the main path's
-   widths, in bf16 and float32, with the tolerances below; time both.
+   hold each of K1-K5b against its plain PyTorch version at the main paths'
+   widths, in bf16 and float32, with the tolerances below; time the kernel,
+   the plain version and the one PyTorch call that computes the same
+   function (``F.scaled_dot_product_attention``, forward and backward for
+   K5b), and compute the card's bound for the same work.
 2. reference: the micro model at 256 px, 8 frames, 2 steps, float32, run
    through the pipeline on the GPU (kernels) and on the CPU (plain
    versions) from the same weights and latents; the final latents must
    agree.
 3. pipeline: the full-size model (random bf16 weights from a seed) through
    ``Pose2VideoPipeline`` at 512x512, 16 frames, 25 DDIM steps, CFG 3.5:
-   two requests with different inputs and seeds.  Every kernel must have
-   launched during this phase.
+   two requests with different inputs and seeds.  K1-K4 must have launched
+   during this phase.
+4. training reference: one stage-1 step of the micro model at 256 px,
+   float32, on the GPU (kernels) and on the CPU (plain versions) from the
+   same weights, batch and random draws; the loss and every trainable
+   gradient must agree, and K5a and K5b must have launched.
+5. training: the stage-1 trainer at SD-1.5 widths (random weights from seed
+   0), 512x512, train_bs 2, bf16 compute, float32 AdamW, on seeded random
+   batches for six steps, the last one profiled.  Losses must be finite,
+   trained weights move, frozen ones (ReferenceNet up_blocks.3, VAE, CLIP)
+   stay bit for bit, the PoseGuider's running statistics change, and K2,
+   K5a and K5b must have launched during the trainer's steps.
 
 The last line of standard output is the device summary JSON; the line before
 it lists the kernels.  Without a CUDA device the script exits nonzero.
@@ -25,6 +39,7 @@ it lists the kernels.  Without a CUDA device the script exits nonzero.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -40,6 +55,19 @@ import time
 # bounded by 2^-6 (two steps) of the largest |plain output|.
 TOLERANCE = {"float32": (1e-4, 1e-5), "bfloat16": (2.0 ** -6, 5e-3)}
 REF_LATENT_ATOL = 1e-3  # phase 2: float32 pipeline, GPU kernels vs CPU plain
+# phase 4: float32 train step, GPU kernels vs CPU plain.  The loss to 1e-4
+# relative; every gradient entry to 1e-3 of the step's largest gradient (some
+# gradients are zero but for rounding, e.g. a conv bias ahead of a GroupNorm,
+# so each is held to the step's scale, not its own).
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+TRAIN_STEPS = 5  # phase 5: trainer steps before the profiled one (>= 4)
+# The card's bound for a kernel's work: the larger of its matrix-product
+# FLOPs at the peak rate for the operands' type (bf16: dense tensor cores;
+# float32: the FMA units, as TF32 would round the operands) and the bytes it
+# must move (each input read once, each output written once) at the memory
+# rate (H100 SXM, NVIDIA's data sheet, at the 700 W limit).
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
 
 SOURCES = {
     "K1": ("tok_flash_banked", "aniportrait_tpu_torch/csrc/flash_attn.cu",
@@ -50,6 +78,10 @@ SOURCES = {
            "aniportrait_tpu/ops/pallas_attention.py:2018"),
     "K4": ("flash_attention", "aniportrait_tpu_torch/csrc/flash_attn.cu",
            "aniportrait_tpu/ops/pallas_attention.py:294"),
+    "K5a": ("flash_attention_fwd_lse", "aniportrait_tpu_torch/csrc/flash_attn.cu",
+            "aniportrait_tpu/ops/pallas_attention.py:370"),
+    "K5b": ("flash_attention_bwd", "aniportrait_tpu_torch/csrc/flash_bwd.cu",
+            "aniportrait_tpu/ops/pallas_attention.py:468"),
 }
 
 
@@ -83,16 +115,68 @@ def _time_ms(fn, iters: int) -> float:
 
 def _chunked(plain, n_rows: int, chunk: int):
     """Run a plain version over row chunks (its float32 logits at the main
-    path's full batch would take tens of GB); ``plain(lo, hi)``."""
+    path's full batch would take tens of GB); ``plain(lo, hi)`` returns a
+    tensor or a tuple of tensors, each with the rows first."""
     import torch
 
-    return lambda: torch.cat(
-        [plain(lo, min(lo + chunk, n_rows)) for lo in range(0, n_rows, chunk)]
-    )
+    def run():
+        parts = [plain(lo, min(lo + chunk, n_rows)) for lo in range(0, n_rows, chunk)]
+        if isinstance(parts[0], tuple):
+            return tuple(torch.cat(p) for p in zip(*parts))
+        return torch.cat(parts)
+
+    return run
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(flops: float, nbytes: float, dtype_name: str):
+    """(least ms the card could take, what bounds it)."""
+    ops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _sdpa(q, k, v, drop=None, split=None):
+    """The library yardstick: ``F.scaled_dot_product_attention`` on
+    ``(B, S, H, D)`` views, with the bank-drop mask as a boolean mask."""
+    import torch
+    import torch.nn.functional as F
+
+    mask = None
+    if drop is not None:
+        bank = torch.arange(k.shape[1], device=k.device) >= split
+        mask = ~(drop[:, None, None, None] & bank)
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask
+    ).transpose(1, 2)
+
+
+def _sdpa_fwd_bwd(q, k, v, do, drop=None, split=None):
+    import torch
+
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    return lambda: torch.autograd.grad(_sdpa(*leaves, drop, split), leaves, do)
+
+
+def rows(x, lo, hi):
+    return None if x is None else x[lo:hi]
+
+
+def _flash_flops(b, h, sq, skv, d, drop, split) -> float:
+    """Matrix-product FLOPs of one (B, S, H, D) flash forward; rows flagged
+    in ``drop`` take only ``split`` keys, as the kernel's loop does."""
+    n_drop = 0 if drop is None else int(drop.sum())
+    keys = (b - n_drop) * skv + n_drop * (split or 0)
+    return 4.0 * h * sq * keys * d
 
 
 def kernel_cases(dtype):
-    """(kernel id, label, kernel call, plain call) at main-path widths."""
+    """Cases ``dict(kid, label, run, plain, library, flops, nbytes)`` at the
+    main paths' widths: K1-K4 at the pose2vid shapes, K5a/K5b at stage-1
+    training's (train_bs 2, 512 px)."""
     import torch
 
     from aniportrait_tpu_torch.ops import kernels as K
@@ -102,35 +186,51 @@ def kernel_cases(dtype):
     rand = lambda *s: torch.randn(*s, generator=g, device="cuda", dtype=dtype)
     cases = []
 
+    def case(kid, label, run, plain, library, flops, nbytes):
+        cases.append(dict(kid=kid, label=label, run=run, plain=plain, library=library,
+                          flops=flops, nbytes=nbytes))
+
     # K1: cond CFG half at 64x64: 16 frame rows over self + one bank row
     b, s, c, h, rep = 16, 4096, 320, 8, 16
     q, k, v = rand(b, s, c), rand(b, s, c), rand(b, s, c)
     kb, vb = rand(b // rep, s, c), rand(b // rep, s, c)
     x = (q, k, v, kb, vb)
-    cases.append(("K1", f"B={b} S={s} S_bank={s} C={c} H={h} rep={rep}",
-                  lambda x=x: K.tok_flash_banked(*x, h, rep),
-                  _chunked(lambda lo, hi, x=x: flash.plain_tok_flash_banked(
-                      x[0][lo:hi], x[1][lo:hi], x[2][lo:hi],
-                      x[3][lo // rep:lo // rep + 1], x[4][lo // rep:lo // rep + 1],
-                      h, hi - lo), b, 4)))
+    qh = q.view(b, s, h, c // h)
+    kc = torch.cat([k, kb.repeat_interleave(rep, 0)], 1).view(b, 2 * s, h, c // h)
+    vc = torch.cat([v, vb.repeat_interleave(rep, 0)], 1).view(b, 2 * s, h, c // h)
+    case("K1", f"B={b} S={s} S_bank={s} C={c} H={h} rep={rep}",
+         lambda x=x: K.tok_flash_banked(*x, h, rep),
+         _chunked(lambda lo, hi, x=x: flash.plain_tok_flash_banked(
+             x[0][lo:hi], x[1][lo:hi], x[2][lo:hi],
+             x[3][lo // rep:lo // rep + 1], x[4][lo // rep:lo // rep + 1],
+             h, hi - lo), b, 4),
+         lambda qh=qh, kc=kc, vc=vc: _sdpa(qh, kc, vc),
+         4.0 * b * h * s * 2 * s * (c // h), _nbytes(q, k, v, kb, vb, q))
 
     # K2: uncond half at 64x64 (d=40) and the c=640 concat call (d=80)
     for b, sq, skv, c in ((16, 4096, 4096, 320), (16, 1024, 2048, 640)):
         q, k, v = rand(b, sq, c), rand(b, skv, c), rand(b, skv, c)
-        cases.append(("K2", f"B={b} Sq={sq} Skv={skv} C={c} H={h}",
-                      (lambda q=q, k=k, v=v: K.tok_flash(q, k, v, h)),
-                      _chunked(lambda lo, hi, q=q, k=k, v=v: flash.plain_tok_flash(
-                          q[lo:hi], k[lo:hi], v[lo:hi], h), b, 4)))
+        d = c // h
+        heads = [t.view(b, t.shape[1], h, d) for t in (q, k, v)]
+        case("K2", f"B={b} Sq={sq} Skv={skv} C={c} H={h}",
+             lambda q=q, k=k, v=v: K.tok_flash(q, k, v, h),
+             _chunked(lambda lo, hi, q=q, k=k, v=v: flash.plain_tok_flash(
+                 q[lo:hi], k[lo:hi], v[lo:hi], h), b, 4),
+             lambda heads=heads: _sdpa(*heads),
+             4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q))
 
     # K3: every motion module width, f = 16, CFG rows b = 2
     for s, c in ((4096, 320), (1024, 640), (256, 1280)):
-        f, bb = 16, 2
+        f, bb, d = 16, 2, c // h
         x = [rand(bb * f, s, c) for _ in range(3)]
-        sc = math.log2(math.e) / math.sqrt(c // h)
-        cases.append(("K3", f"b={bb} f={f} s={s} C={c} H={h} d={c // h}",
-                      (lambda x=x, sc=sc: K.nat_temporal(*x, f, h, sc)),
-                      (lambda x=x, sc=sc: temporal.plain_nat_temporal(
-                          *x, f, h, sc * temporal.LN2))))
+        tok = [t.view(bb, f, s, h, d).permute(0, 2, 1, 3, 4).reshape(bb * s, f, h, d)
+               for t in x]
+        sc = math.log2(math.e) / math.sqrt(d)
+        case("K3", f"b={bb} f={f} s={s} C={c} H={h} d={d}",
+             lambda x=x, sc=sc: K.nat_temporal(*x, f, h, sc),
+             lambda x=x, sc=sc: temporal.plain_nat_temporal(*x, f, h, sc * temporal.LN2),
+             lambda tok=tok: _sdpa(*tok),
+             4.0 * bb * s * h * f * f * d, _nbytes(*x, x[0]))
 
     # K4: PoseGuider stage-0 transformer (16 frames, 1024 tokens, 16 x 88);
     # with drop rows: 2048 keys, alternate rows see only the first 1024
@@ -141,15 +241,75 @@ def kernel_cases(dtype):
         k, v = rand(b, skv, hh, d), rand(b, skv, hh, d)
         label = f"B={b} S={s} Skv={skv} H={hh} d={d}" + (
             f" drop_tail kv_split={split}" if drop is not None else "")
-        cases.append(("K4", label,
-                      (lambda q=q, k=k, v=v, drop=drop, split=split:
-                       K.flash_attention(q, k, v, drop, split)),
-                      _chunked(lambda lo, hi, q=q, k=k, v=v, drop=drop, split=split:
-                               flash.plain_attention_bshd(
-                                   q[lo:hi], k[lo:hi], v[lo:hi],
-                                   None if drop is None else drop[lo:hi], split),
-                               b, 4)))
+        case("K4", label,
+             lambda q=q, k=k, v=v, drop=drop, split=split:
+                 K.flash_attention(q, k, v, drop, split),
+             _chunked(lambda lo, hi, q=q, k=k, v=v, drop=drop, split=split:
+                      flash.plain_attention_bshd(
+                          q[lo:hi], k[lo:hi], v[lo:hi],
+                          None if drop is None else drop[lo:hi], split), b, 4),
+             lambda q=q, k=k, v=v, drop=drop, split=split: _sdpa(q, k, v, drop, split),
+             _flash_flops(b, hh, s, skv, d, drop, split), _nbytes(q, k, v, q))
+
+    # K5a / K5b: stage-1 training at 512 px, train_bs 2.  The denoising
+    # UNet's self + bank attention (masked: CFG-dropped rows skip the bank)
+    # at 64x64 (d=40) and 32x32 (d=80), and the PoseGuider's stage-0
+    # transformer (16 x 88, no bank); row 1 is the dropped one.
+    b = 2
+    for sq, skv, hh, d, masked in ((4096, 8192, 8, 40, False), (4096, 8192, 8, 40, True),
+                                   (1024, 2048, 8, 80, False), (1024, 2048, 8, 80, True),
+                                   (1024, 1024, 16, 88, False)):
+        q, k, v, do = rand(b, sq, hh, d), rand(b, skv, hh, d), rand(b, skv, hh, d), \
+            rand(b, sq, hh, d)
+        drop, split = ((torch.tensor([False, True], device="cuda"), skv // 2)
+                       if masked else (None, None))
+        label = f"B={b} Sq={sq} Skv={skv} H={hh} d={d}" + (
+            f" drop_tail=[0,1] kv_split={split}" if masked else "")
+        fwd_flops = _flash_flops(b, hh, sq, skv, d, drop, split)
+
+        plain_fwd = _chunked(lambda lo, hi, q=q, k=k, v=v, drop=drop, split=split:
+                             flash.plain_attention_fwd_lse(
+                                 q[lo:hi], k[lo:hi], v[lo:hi], rows(drop, lo, hi), split),
+                             b, 1)
+        out, lse = plain_fwd()
+        out = out.contiguous()
+        case("K5a", label,
+             lambda q=q, k=k, v=v, drop=drop, split=split:
+                 K.flash_attention_fwd_lse(q, k, v, drop, split),
+             plain_fwd,
+             lambda q=q, k=k, v=v, drop=drop, split=split: _sdpa(q, k, v, drop, split),
+             fwd_flops, _nbytes(q, k, v, q, lse))
+        case("K5b", label,
+             lambda q=q, k=k, v=v, out=out, lse=lse, do=do, drop=drop, split=split:
+                 K.flash_attention_bwd(q, k, v, out, lse, do, drop, split),
+             _chunked(lambda lo, hi, q=q, k=k, v=v, out=out, lse=lse, do=do, drop=drop,
+                      split=split: flash.plain_attention_bwd(
+                          q[lo:hi], k[lo:hi], v[lo:hi], out[lo:hi], lse[lo:hi],
+                          do[lo:hi], rows(drop, lo, hi), split), b, 1),
+             _sdpa_fwd_bwd(q, k, v, do, drop, split),
+             2.5 * fwd_flops, _nbytes(q, k, v, out, lse, do, q, k, v))
     return cases
+
+
+def _check(got, ref):
+    """(ok, max abs error, rel-L2 error, bound) of outputs against the plain
+    version's; each output is held to the tolerance of its own dtype."""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    ok, worst_abs, worst_rel, worst_bound = True, 0.0, 0.0, 0.0
+    for a, r in zip(got, ref):
+        name = str(r.dtype).split(".")[-1]
+        atol, rtol = TOLERANCE[name]
+        diff = a.float() - r.float()
+        max_abs = diff.abs().max().item()
+        rel = (diff.norm() / r.float().norm().clamp_min(1e-30)).item()
+        bound = atol * r.float().abs().max().item() if name == "bfloat16" else atol
+        ok &= bool(torch.isfinite(a).all()) and max_abs <= bound and rel <= rtol
+        worst_abs, worst_rel = max(worst_abs, max_abs), max(worst_rel, rel)
+        worst_bound = max(worst_bound, bound)
+    return ok, worst_abs, worst_rel, worst_bound
 
 
 def kernel_phase(results: dict) -> None:
@@ -162,32 +322,33 @@ def kernel_phase(results: dict) -> None:
     log(f"[kernels] built {build.BUILD_DIR} in {time.perf_counter() - t0:.1f} s "
         f"from {', '.join(p.name for p in build.sources())}")
     for line in (build.BUILD_DIR / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
             log(f"[ptxas] {line.strip()}")
     failed = []
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
-        atol, rtol = TOLERANCE[name]
-        for kid, label, run, plain in kernel_cases(dtype):
-            got = run()
+        for c in kernel_cases(dtype):
+            kid, label = c["kid"], c["label"]
+            got = c["run"]()
             torch.cuda.synchronize()
-            ref = plain()
-            diff = (got.float() - ref.float())
-            max_abs = diff.abs().max().item()
-            rel_l2 = (diff.norm() / ref.float().norm().clamp_min(1e-30)).item()
-            finite = bool(torch.isfinite(got).all())
-            bound = atol * ref.float().abs().max().item() if dtype == torch.bfloat16 else atol
-            ok = finite and max_abs <= bound and rel_l2 <= rtol
-            ms = _time_ms(run, 5)
-            plain_ms = _time_ms(plain, 2)
+            ref = c["plain"]()
+            ok, max_abs, rel_l2, bound = _check(got, ref)
+            del got, ref
+            ms = _time_ms(c["run"], 5)
+            plain_ms = _time_ms(c["plain"], 2)
+            lib_ms = _time_ms(c["library"], 5)
+            bound_ms, bound_by = _bound(c["flops"], c["nbytes"], name)
             log(f"[kernels] {kid} {name} {label}: max_abs_err={max_abs:.3e} "
-                f"rel_l2={rel_l2:.3e} (tol {bound:.3g}/{rtol:g}) kernel {ms:.3f} ms "
-                f"plain {plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
+                f"rel_l2={rel_l2:.3e} (tol {bound:.3g}/{TOLERANCE[name][1]:g}) "
+                f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms library {lib_ms:.3f} ms "
+                f"bound {bound_ms:.4f} ms ({bound_by}; {c['flops'] / 1e9:.1f} GFLOP, "
+                f"{c['nbytes'] / 1e6:.1f} MB) {'ok' if ok else 'FAIL'}")
             if not ok:
                 failed.append(f"{kid} {name} {label}")
             if kid not in results and name == "bfloat16":
-                results[kid] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
-            del got, ref, diff
+                results[kid] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    library_ms=lib_ms)
         torch.cuda.empty_cache()
     if failed:
         raise SystemExit(f"kernel phase failed: {failed}")
@@ -282,16 +443,204 @@ def pipeline_phase(results: dict) -> None:
         f"peak device memory {peak:.2f} GiB; kernel launches {counts}")
     if np.array_equal(videos[0], videos[1]):
         raise SystemExit("pipeline: two different requests gave the same video")
-    never = [k for k, n in counts.items() if n == 0]
+    serving = ("K1", "K2", "K3", "K4")
+    never = [k for k in serving if counts[k] == 0]
     if never:
         raise SystemExit(f"pipeline: kernels {never} never launched on the main path")
-    for kid, n in counts.items():
-        results.setdefault(kid, {})["launches"] = n
+    for kid in serving:
+        results.setdefault(kid, {})["launches"] = counts[kid]
+
+
+# ----------------------------------------------------------------- training
+def _train_batch(rs, b: int, res: int, clip_res: int):
+    """A batch in the train_step contract: channels-last images in [-1, 1]."""
+    import numpy as np
+
+    img = lambda *s: rs.uniform(-1, 1, s).astype(np.float32)
+    return {"pixel_values": img(b, 1, res, res, 3),
+            "pixel_values_pose": img(b, 1, res, res, 3),
+            "pixel_values_ref_img": img(b, res, res, 3),
+            "clip_ref_image": rs.randn(b, clip_res, clip_res, 3).astype(np.float32)}
+
+
+def train_reference_phase() -> None:
+    """One stage-1 step of the micro model at 256 px, float32: GPU (kernels)
+    vs CPU (plain versions) from the same weights, batch and draws."""
+    import numpy as np
+    import torch
+
+    from aniportrait_tpu_torch import factory
+    from aniportrait_tpu_torch.ops import kernels as K
+    from aniportrait_tpu_torch.train import train_step as ts
+    from aniportrait_tpu_torch.train.stage1 import Stage1Settings
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    settings = Stage1Settings()
+    b, res = 2, 256
+    cpu = factory.build_training_models(
+        "micro", "cpu", seed=0, frozen_dtype=torch.float32,
+        scheduler_kwargs=settings.scheduler_kwargs())
+    rs = np.random.RandomState(4)
+    batch = _train_batch(rs, b, res, cpu.clip.image_size)
+    hl = res // 8
+    draws = dict(eps_target=rs.randn(b, 4, hl, hl), eps_ref=rs.randn(b, 4, hl, hl),
+                 noise=rs.randn(b, 1, 4, hl, hl), offset=rs.randn(b, 1, 4, 1, 1))
+    t = rs.randint(0, 1000, (b,))
+    loss, grads = {}, {}
+    for device, modules in (("cuda", cpu.to("cuda")), ("cpu", cpu)):
+        trainable = ts.apply_freeze(modules)
+        opt = ts.make_optimizer(trainable)
+        step_draws = ts.Draws(
+            **{k: torch.from_numpy(v.astype(np.float32)).to(device) for k, v in draws.items()},
+            uncond=torch.tensor(False, device=device),
+            t=torch.from_numpy(t).to(device))
+        K.reset_launch_counts()
+        out = ts.train_step(modules, opt, {k: torch.from_numpy(v).to(device)
+                                           for k, v in batch.items()},
+                            draws=step_draws, uncond_ratio=settings.uncond_ratio)
+        loss[device] = float(out["loss"])
+        grads[device] = {k: p.grad.float().cpu() for k, p in trainable.items()}
+        if device == "cuda":
+            counts = K.launch_counts()
+    scale = max(g.abs().max().item() for g in grads["cpu"].values())
+    err = max((grads["cuda"][k] - g).abs().max().item() for k, g in grads["cpu"].items())
+    loss_err = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    log(f"[train-reference] micro {res}px train_bs {b} float32, one step: loss gpu "
+        f"{loss['cuda']:.7f} cpu {loss['cpu']:.7f} (rel err {loss_err:.2e}, tol "
+        f"{TRAIN_LOSS_RTOL:g}); {len(grads['cpu'])} trainable tensors, max |grad gpu - "
+        f"cpu| = {err:.3e} = {err / scale:.2e} of the largest gradient {scale:.3e} "
+        f"(tol {TRAIN_GRAD_TOL:g}); kernel launches on the GPU step {counts}")
+    if not math.isfinite(loss["cuda"]) or loss_err > TRAIN_LOSS_RTOL:
+        raise SystemExit("train reference phase: GPU loss disagrees with CPU")
+    if not err <= TRAIN_GRAD_TOL * scale:
+        raise SystemExit("train reference phase: GPU gradients disagree with CPU")
+    missing = [k for k in ("K2", "K5a", "K5b") if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"train reference phase: kernels {missing} never launched")
+
+
+def _profile_families(prof, wall_s: float):
+    """Device seconds by kernel family from a torch.profiler run, and the
+    device's idle share of the wall time."""
+    families = (("flash backward (K5b)", ("flash_bwd",)),
+                ("flash forward (K2, K5a)", ("flash_fwd",)),
+                ("GEMM", ("gemm", "cutlass", "xmma", "cublas", "matmul")),
+                ("convolution", ("conv", "cudnn", "implicit", "winograd", "fft")),
+                ("norm", ("norm",)),
+                ("optimizer", ("multi_tensor", "foreach", "adam")))
+    totals, busy = {}, 0.0
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if not us or evt.device_type is None or "cuda" not in str(evt.device_type).lower():
+            continue
+        name = evt.key.lower()
+        fam = next((f for f, keys in families if any(k in name for k in keys)),
+                   "elementwise, reductions, copies")
+        totals[fam] = totals.get(fam, 0.0) + us / 1e6
+        busy += us / 1e6
+    return totals, busy, (1.0 - busy / wall_s if busy else None)
+
+
+def training_phase(results: dict) -> None:
+    """The stage-1 trainer at SD-1.5 widths: 512x512, train_bs 2, bf16
+    compute, float32 AdamW, seeded random batches."""
+    import numpy as np
+    import torch
+
+    from aniportrait_tpu_torch import factory
+    from aniportrait_tpu_torch.ops import kernels as K
+    from aniportrait_tpu_torch.train.stage1 import Stage1Settings, train
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    settings = Stage1Settings(seed=0)
+    res, b = settings.sample_size[0], settings.train_bs
+    t0 = time.perf_counter()
+    modules = factory.build_training_models("full", "cuda", seed=0,
+                                            scheduler_kwargs=settings.scheduler_kwargs())
+    torch.cuda.synchronize()
+    log(f"[training] full-size training models built on the GPU in "
+        f"{time.perf_counter() - t0:.1f} s")
+    named = {f"{m}.{n}": p for m, mod in modules.models().items()
+             for n, p in mod.named_parameters()}
+    frozen_keys = [k for k in named if k.startswith(
+        ("reference_unet.up_blocks.3.", "vae.", "clip."))]
+    frozen = {k: named[k].detach().clone() for k in frozen_keys}
+    probes = ("reference_unet.down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q.weight",
+              "denoising_unet.conv_in.weight", "pose_guider.final_proj.weight")
+    before = {k: named[k].detach().clone() for k in probes}
+    stats = {k: v.clone() for k, v in modules.pose_guider.state_dict().items()
+             if "running" in k}
+    clip_res = modules.clip.image_size
+    rs = np.random.RandomState(0)
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    # one train() call of TRAIN_STEPS + 1 steps; the profiler records only
+    # the last one (device activity only, to keep its host cost small), one
+    # step after a warm-up step
+    prof = profile(activities=[ProfilerActivity.CUDA],
+                   schedule=schedule(wait=TRAIN_STEPS - 1, warmup=1, active=1))
+
+    def batches():  # the trainer asks for the next batch when a step is done
+        for _ in range(TRAIN_STEPS + 1):
+            yield _train_batch(rs, b, res, clip_res)
+            prof.step()
+
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with prof:
+        history = train(settings, modules, batches(), max_steps=TRAIN_STEPS + 1,
+                        device="cuda")
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for h in history:
+        log(f"[training] step {h['step']}: loss {h['loss']:.6f} grad norm "
+            f"{h['grad_norm']:.4f} {h['seconds']:.3f} s")
+    steady = [h["seconds"] for h in history[1:TRAIN_STEPS - 1]]
+    trained = sum(p.numel() for p in named.values() if p.requires_grad)
+    log(f"[training] {res}x{res} train_bs {b} bf16 compute, float32 AdamW over "
+        f"{trained / 1e9:.3f} B trainable parameters: steps 1-{TRAIN_STEPS - 2} (not "
+        f"profiled) {', '.join(f'{t:.3f}' for t in steady)} s, mean "
+        f"{sum(steady) / len(steady):.3f} s; peak device memory {peak:.2f} GiB; "
+        f"kernel launches {counts}")
+    wall = history[-1]["seconds"]
+    totals, busy, idle = _profile_families(prof, wall)
+    if busy:
+        shares = ", ".join(f"{f} {s:.3f} s ({s / busy:.1%})"
+                           for f, s in sorted(totals.items(), key=lambda x: -x[1]))
+        log(f"[training] profiled step {history[-1]['step']}: {wall:.3f} s wall, "
+            f"{busy:.3f} s device busy, idle share {idle:.1%}; by family: {shares}")
+    else:
+        log("[training] profiled step: the profiler gave no device time (not measured)")
+
+    losses = [h["loss"] for h in history]
+    if len(history) != TRAIN_STEPS + 1 or not all(map(math.isfinite, losses)):
+        raise SystemExit(f"training: losses {losses}")
+    moved = [k for k in probes if not torch.equal(before[k], named[k].detach())]
+    if not moved:
+        raise SystemExit("training: no trained parameter moved")
+    changed = [k for k in frozen_keys if not torch.equal(frozen[k], named[k].detach())]
+    if changed or not frozen_keys:
+        raise SystemExit(f"training: frozen parameters changed: {changed[:5]}")
+    new_stats = modules.pose_guider.state_dict()
+    if all(torch.equal(v, new_stats[k]) for k, v in stats.items()):
+        raise SystemExit("training: the PoseGuider's running statistics did not change")
+    never = [k for k in ("K2", "K5a", "K5b") if counts[k] == 0]
+    if never:
+        raise SystemExit(f"training: kernels {never} never launched on the main path")
+    log(f"[training] ok: {len(moved)}/{len(probes)} probed trained tensors moved, "
+        f"{len(frozen_keys)} frozen tensors unchanged, running statistics updated")
+    for kid in ("K5a", "K5b"):
+        results.setdefault(kid, {})["launches"] = counts[kid]
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=("all", "kernels"), default="all")
+    parser.add_argument("--phase", choices=("all", "kernels", "train"), default="all")
     args = parser.parse_args()
 
     import torch
@@ -304,15 +653,21 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     results: dict = {}
-    kernel_phase(results)
+    if args.phase in ("all", "kernels"):
+        kernel_phase(results)
     if args.phase == "all":
         reference_phase()
         pipeline_phase(results)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.phase in ("all", "train"):
+        train_reference_phase()
+        training_phase(results)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name=f"{kid} {SOURCES[kid][0]}", route="cuda", source=SOURCES[kid][1],
-             replaces=SOURCES[kid][2], launches=results[kid].get("launches", 0),
-             max_abs_err=results[kid]["max_abs_err"], ms=results[kid]["ms"],
-             plain_ms=results[kid]["plain_ms"])
+             replaces=SOURCES[kid][2], launches=results.get(kid, {}).get("launches", 0),
+             **{k: results.get(kid, {}).get(k) for k in keys})
         for kid in sorted(SOURCES)
     ]
     print(json.dumps({"kernels": kernels}))

@@ -60,12 +60,81 @@ def test_temporal_matches_plain(rand, dtype, frames):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [40, 88, 160])
+@pytest.mark.parametrize("drop", [False, True])
+def test_flash_fwd_lse_and_bwd_match_plain(rand, dtype, d, drop):
+    """K5a (out, lse) and K5b (dq, dk, dv); d = 160 takes the backward's
+    32-row tiles.  Gradients are held to the output's tolerance scaled by
+    their largest magnitude."""
+    b, sq, skv, h = 3, 70, 90, 2
+    q, k, v, do = (rand(dtype, b, s, h, d) for s in (sq, skv, skv, sq))
+    mask = (torch.tensor([True, False, True], device="cuda"), 45) if drop else (None, None)
+    out, lse = K.flash_attention_fwd_lse(q, k, v, *mask)
+    ref_out, ref_lse = flash.plain_attention_fwd_lse(q, k, v, *mask)
+    torch.testing.assert_close(out, ref_out, **TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(out, K.flash_attention(q, k, v, *mask), **TOL[dtype])
+    got = K.flash_attention_bwd(q, k, v, ref_out, ref_lse, do, *mask)
+    ref = flash.plain_attention_bwd(q, k, v, ref_out, ref_lse, do, *mask)
+    for g, r in zip(got, ref):
+        scale = r.float().abs().max().item()
+        tol = TOL[dtype]
+        torch.testing.assert_close(g.float(), r.float(), atol=tol["atol"] * scale,
+                                   rtol=tol["rtol"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_functions_match_plain_grads(rand, dtype):
+    """TokFlash, TokFlashBanked and FlashAttention: the backward runs K5a
+    and K5b and equals the plain versions' backward."""
+    from aniportrait_tpu_torch.ops.kernels.autograd import (
+        FlashAttention, TokFlash, TokFlashBanked)
+
+    h, d = 2, 40
+    x = [rand(dtype, 4, 70, h * d) for _ in range(3)] + [rand(dtype, 2, 50, h * d)
+                                                       for _ in range(2)]
+    g = rand(dtype, 4, 70, h * d)
+    cases = [
+        (lambda q, k, v, kb, vb: TokFlash.apply(q, k, v, h),
+         lambda q, k, v, kb, vb: flash.plain_tok_flash(q, k, v, h)),
+        (lambda q, k, v, kb, vb: TokFlashBanked.apply(q, k, v, kb, vb, h, 2),
+         lambda q, k, v, kb, vb: flash.plain_tok_flash_banked(q, k, v, kb, vb, h, 2)),
+        (lambda q, k, v, kb, vb: FlashAttention.apply(
+            *(t.reshape(4, 70, h, d) for t in (q, k, v)),
+            torch.tensor([1, 0, 0, 1], device="cuda"), 30).reshape(4, 70, h * d),
+         lambda q, k, v, kb, vb: flash.plain_attention_bshd(
+             *(t.reshape(4, 70, h, d) for t in (q, k, v)),
+             torch.tensor([1, 0, 0, 1], device="cuda"), 30).reshape(4, 70, h * d)),
+    ]
+    for fn, plain in cases:
+        counts = K.launch_counts()
+        a = [t.clone().requires_grad_() for t in x]
+        fn(*a).backward(g)
+        after = K.launch_counts()
+        assert after["K5a"] > counts["K5a"] and after["K5b"] > counts["K5b"]
+        r = [t.float().clone().requires_grad_() for t in x]
+        plain(*r).backward(g.float())
+        for ga, gr in zip(a, r):
+            if gr.grad is None:
+                assert ga.grad is None
+                continue
+            scale = gr.grad.abs().max().item()
+            torch.testing.assert_close(ga.grad.float(), gr.grad, rtol=5e-2,
+                                       atol=TOL[dtype]["atol"] * 4 * scale)
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(rand):
     q = rand(torch.float32, 2, 70, 80)
     with pytest.raises(ValueError):
         K.tok_flash(q, q.transpose(1, 2).contiguous().transpose(1, 2), q, 2)
     with pytest.raises(TypeError):
         K.tok_flash(q.half(), q.half(), q.half(), 2)
-    with pytest.raises(NotImplementedError):
-        g = q.clone().requires_grad_()
-        K.tok_flash(g, g, g, 2)
+    q4 = q.reshape(2, 70, 2, 40)
+    out, lse = K.flash_attention_fwd_lse(q4, q4, q4)
+    with pytest.raises(ValueError):
+        K.flash_attention_bwd(q4, q4, q4, out, lse.double(), q4)
+    with pytest.raises(ValueError):
+        K.flash_attention_bwd(q4, q4, q4, out, lse, q4, torch.ones(2, device="cuda"), 0)

@@ -4,6 +4,9 @@
     JAX function on its Pallas kernel, run in interpret mode as
     tests/test_pallas_attention.py runs it: same numpy inputs, float32,
     2e-5 abs / 1e-4 rel.
+(b) K5a's (out, lse) and K5b's (dq, dk, dv), and the gradients of the
+    autograd Functions around K1, K2 and K4, equal the JAX custom VJPs on
+    their Pallas kernels in interpret mode (``jax.grad``), same tolerance.
 (e) attention_route at the full-size main path's shapes gives the kernel the
     TPU table assigns (K1 banked, K2 token, K3 temporal, K4 head layout).
 The CUDA kernels themselves are tested in tests/test_torch_cuda.py.
@@ -93,6 +96,96 @@ def test_k4_head_flash_matches_pallas(drop):
         None if drop is None else torch.from_numpy(drop_np), split,
     )
     _close(port, ref)
+
+
+def _bshd_case(seed, drop):
+    """Ragged (B, S, H, D) operands: Sq 40 and Skv 50 are not multiples of
+    the 16-row blocks; with ``drop`` rows 0 and 2 ignore keys 30 and up."""
+    rs = np.random.RandomState(seed)
+    B, SQ, SKV, H, D = 4, 40, 50, 2, 8
+    x = [_rand(rs, B, s, H, D) for s in (SQ, SKV, SKV, SQ)]
+    mask = (np.asarray([1, 0, 1, 0], np.int32), 30) if drop else (None, None)
+    return x, mask
+
+
+def _jax_flash(q, k, v, mask):
+    from aniportrait_tpu.ops.pallas_attention import flash_attention
+
+    drop, split = mask
+    return flash_attention(q, k, v, drop_tail=None if drop is None else jnp.asarray(drop),
+                           kv_split=split, block_q=16, block_kv=16, interpret=True)
+
+
+def _torch_mask(mask):
+    drop, split = mask
+    return (None if drop is None else torch.from_numpy(drop)), split
+
+
+@pytest.mark.parametrize("drop", [False, True])
+def test_k5a_out_and_lse_match_pallas(drop):
+    from aniportrait_tpu.ops.pallas_attention import _flash_fwd_impl
+
+    (q, k, v, _), (drop_np, split) = _bshd_case(6, drop)
+    b, sq, h, _ = q.shape
+    jdrop = jnp.asarray(np.zeros(b, np.int32) if drop_np is None else drop_np)
+    with jax.default_matmul_precision("highest"):
+        out, res = _flash_fwd_impl(*map(jnp.asarray, (q, k, v)), jdrop, split, 16, 16, True)
+    lse = np.asarray(res[-1])[:, :sq, 0].reshape(b, h, sq)
+    port_out, port_lse = K.flash_attention_fwd_lse(
+        *map(torch.from_numpy, (q, k, v)), *_torch_mask((drop_np, split)))
+    _close(port_out, out)
+    _close(port_lse, lse)
+
+
+@pytest.mark.parametrize("drop", [False, True])
+def test_k5b_grads_match_pallas_vjp(drop):
+    """K5b from K5a's residuals, and the same through FlashAttention's
+    autograd, against jax.grad of the Pallas flash_attention."""
+    from aniportrait_tpu_torch.ops.kernels.autograd import FlashAttention
+
+    (q, k, v, g), mask = _bshd_case(7, drop)
+    with jax.default_matmul_precision("highest"):
+        ref = jax.grad(lambda q, k, v: jnp.sum(_jax_flash(q, k, v, mask) * g),
+                       argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    out, lse = K.flash_attention_fwd_lse(tq, tk, tv, *_torch_mask(mask))
+    for port, r in zip(K.flash_attention_bwd(tq, tk, tv, out, lse, tg, *_torch_mask(mask)), ref):
+        _close(port, r)
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    FlashAttention.apply(*leaves, *_torch_mask(mask)).backward(tg)
+    for leaf, r in zip(leaves, ref):
+        _close(leaf.grad, r)
+
+
+@pytest.mark.parametrize("rep", [0, 1, 2])
+def test_token_flash_grads_match_pallas_vjp(rep):
+    """TokFlash (rep 0) and TokFlashBanked (rep 1, 2): grads of every
+    operand against jax.grad of tok_flash / tok_flash_banked."""
+    from aniportrait_tpu.ops.pallas_attention import tok_flash, tok_flash_banked
+    from aniportrait_tpu_torch.ops.kernels.autograd import TokFlash, TokFlashBanked
+
+    rs = np.random.RandomState(8)
+    B, SQ, SB, H, D = 4, 40, 30, 2, 8
+    C = H * D
+    x = [_rand(rs, B, SQ, C) for _ in range(3)]
+    if rep:
+        x += [_rand(rs, B // rep, SB, C) for _ in range(2)]
+    g = _rand(rs, B, SQ, C)
+
+    def jax_fn(*a):
+        if rep:
+            return tok_flash_banked(*a, H, rep, 16, 16, True)
+        return tok_flash(*a, H, 16, 16, True)
+
+    with jax.default_matmul_precision("highest"):
+        ref = jax.grad(lambda *a: jnp.sum(jax_fn(*a) * g),
+                       argnums=tuple(range(len(x))))(*map(jnp.asarray, x))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in x]
+    out = (TokFlashBanked.apply(*leaves, H, rep) if rep
+           else TokFlash.apply(*leaves, H))
+    out.backward(torch.from_numpy(g))
+    for leaf, r in zip(leaves, ref):
+        _close(leaf.grad, r)
 
 
 # full-size main-path shapes (SD-1.5 widths, 512 px, 16 frames, CFG) -> route
