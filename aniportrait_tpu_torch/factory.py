@@ -156,6 +156,10 @@ def build_training_models(size: str = "full", device="cuda", seed: int = 0,
 
 def build_pipeline(size: str = "full", device="cuda", dtype=torch.float32, seed: int = 0,
                    **pipeline_kwargs):
+    """``build_models`` and a ``Pose2VideoPipeline`` over them;
+    ``pipeline_kwargs`` are the pipeline's options (context windows, window
+    batch, ``window_fusion``, ``fusion_motion``, ``encoder_cache_interval``,
+    ``context_rotate``)."""
     from aniportrait_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
 
     modules = build_models(size, device, dtype, seed)

@@ -1,5 +1,5 @@
 """AnimateDiff-style temporal motion module (port of
-``aniportrait_tpu/models/motion_module.py``, whole-clip form).
+``aniportrait_tpu/models/motion_module.py``).
 
 GroupNorm (per frame) -> Linear proj_in -> temporal transformer block
 (2 x temporal self attention with a sinusoidal positional encoding, GEGLU
@@ -7,10 +7,17 @@ feed-forward) -> Linear proj_out -> residual.  Attention runs along the frame
 axis of natural ``(b, f, s, c)`` activations through the temporal kernel.
 Parameter names are the reference checkpoint's
 (``temporal_transformer.transformer_blocks.0.attention_blocks.N...``).
+
+With a window table (the pipeline's window-fused mode) the transformer
+blocks see each window as its own sequence, stacked into the batch, with the
+positional encoding indexed by position within the window; frames covered by
+several windows average their hidden states before proj_out
+(``aniportrait_tpu/models/motion_module.py:106-204``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -65,6 +72,69 @@ class TemporalTransformerBlock(nn.Module):
         return x + self.ff(self.ff_norm(x))
 
 
+def _is_contiguous(windows: np.ndarray) -> bool:
+    return bool((windows == windows[:, :1] + np.arange(windows.shape[1])).all())
+
+
+def split_windows(hid, windows: np.ndarray):
+    """(b, f, s, c) -> (b * n_win, win_len, s, c), window rows stacked into
+    the batch.  ``windows``: (n_win, win_len) frame indices that cover every
+    frame at least once."""
+    b, f, s, c = hid.shape
+    n_win, win_len = windows.shape
+    cover = np.bincount(windows.reshape(-1), minlength=f)
+    if (cover == 0).any():
+        raise ValueError(
+            "motion window table leaves frames uncovered: "
+            f"{np.nonzero(cover == 0)[0].tolist()} (of {f} frames; table shape "
+            f"{windows.shape})"
+        )
+    if _is_contiguous(windows):
+        hid = torch.stack([hid[:, int(a):int(a) + win_len] for a in windows[:, 0]], dim=1)
+    else:
+        hid = hid[:, torch.as_tensor(windows, dtype=torch.long, device=hid.device)]
+    return hid.reshape(b * n_win, win_len, s, c)
+
+
+def merge_windows(hid, windows: np.ndarray, frames: int):
+    """Inverse of :func:`split_windows`: (b * n_win, win_len, s, c) ->
+    (b, f, s, c), each frame the mean over the windows that cover it.
+
+    Contiguous tables reassemble run by run: a run covered by one window is
+    a slice, an overlap run the mean of its window slices in the activation
+    dtype, as the JAX package computes it.  Other tables scatter-add into a
+    float32 buffer and divide by the counts."""
+    n_win, win_len = windows.shape
+    _, _, s, c = hid.shape
+    hid = hid.reshape(-1, n_win, win_len, s, c)
+    if not _is_contiguous(windows):
+        idx = torch.as_tensor(windows.reshape(-1), dtype=torch.long, device=hid.device)
+        acc = torch.zeros((hid.shape[0], frames, s, c), dtype=torch.float32,
+                          device=hid.device)
+        acc.index_add_(1, idx, hid.float().reshape(hid.shape[0], -1, s, c))
+        count = torch.as_tensor(np.bincount(windows.reshape(-1), minlength=frames),
+                                dtype=torch.float32, device=hid.device)
+        return (acc / count[None, :, None, None]).to(hid.dtype)
+    cover = [[] for _ in range(frames)]  # frame -> [(window, position)]
+    for wi, start in enumerate(windows[:, 0]):
+        for p in range(win_len):
+            cover[int(start) + p].append((wi, p))
+    key = [tuple((wi, p - fr) for wi, p in cover[fr]) for fr in range(frames)]
+    segs, a = [], 0
+    for fr in range(1, frames + 1):
+        if fr < frames and key[fr] == key[a]:
+            continue
+        parts = [hid[:, wi, p:p + fr - a] for wi, p in cover[a]]
+        acc = parts[0]
+        for part in parts[1:]:
+            acc = acc + part
+        if len(parts) > 1:
+            acc = acc * torch.tensor(1.0 / len(parts), dtype=hid.dtype)
+        segs.append(acc)
+        a = fr
+    return torch.cat(segs, dim=1)
+
+
 class TemporalTransformer3D(nn.Module):
     def __init__(self, channels: int, heads: int = 8, num_transformer_blocks: int = 1,
                  num_attention_blocks: int = 2, pe_max_len: int = 32,
@@ -79,16 +149,17 @@ class TemporalTransformer3D(nn.Module):
         self.proj_out = nn.Linear(channels, channels)
 
     def forward(self, x, video_length: int, windows=None):
-        """x: (b * f, c, h, w) -> same shape."""
-        if windows is not None:
-            raise NotImplementedError(
-                "window-fused motion modules are not ported yet"
-            )
+        """x: (b * f, c, h, w) -> same shape.  windows: optional
+        (n_win, win_len) numpy frame-index table (see the module doc)."""
         bf, c, h, w = x.shape
         hid = self.proj_in(to_tokens(self.norm(x)))
         hid = hid.reshape(bf // video_length, video_length, h * w, c)
+        if windows is not None:
+            hid = split_windows(hid, windows)
         for block in self.transformer_blocks:
             hid = block(hid)
+        if windows is not None:
+            hid = merge_windows(hid, windows, video_length)
         hid = self.proj_out(hid.reshape(bf, h * w, c))
         return x + from_tokens(hid, h, w)
 

@@ -51,6 +51,7 @@ class AniUNet(nn.Module):
         ch = list(block_out_channels)
         n = len(ch)
         self.layers_per_block = layers_per_block
+        self.motion_pe_max_len = motion_pe_max_len
         temb = ch[0] * 4
 
         def spatial(c):
@@ -120,19 +121,27 @@ class AniUNet(nn.Module):
                 pose_cond_fea: Optional[List[torch.Tensor]] = None,
                 ref_banks: Optional[Dict[str, torch.Tensor]] = None,
                 capture_banks: bool = False, drop_mode: str = "none",
-                mode: str = "full", motion_windows=None, drop_ref=None):
+                mode: str = "full", motion_windows=None, drop_ref=None,
+                enc_features=None):
         """
         sample: (b, f, c_in, h, w) latents; timesteps: (b,);
         encoder_hidden_states: (b, S, ctx_dim); pose_cond_fea: list of
         (b, f, c_k, h_k, w_k); ref_banks: {key: (b, L, c)}; drop_mode:
         'none', 'first_half' or 'traced' (see SpatialTransformerBlock), the
-        last with drop_ref (b,) bool, the CFG-dropped batch entries.
-        Returns (output (b, f, c_out, h, w) or None, banks dict).
+        last with drop_ref (b,) bool, the CFG-dropped batch entries;
+        motion_windows: the motion modules' (n_win, win_len) numpy window
+        table, or None for whole-clip temporal attention.
+
+        mode: 'full'; 'encode' stops after the mid block and returns
+        ``enc_features = (mid output, skip stack)`` (frames folded) in place
+        of the output; 'decode' runs the up path from ``enc_features`` (the
+        encoder cache of ``aniportrait_tpu/models/unet.py:167-227``), and
+        ``sample`` only gives the shape.
+        Returns (output (b, f, c_out, h, w), or enc_features, or None
+        without an output head; banks dict).
         """
-        if mode != "full":
-            raise NotImplementedError(
-                f"mode={mode!r}: the encoder-cache split is not ported yet"
-            )
+        if mode not in ("full", "encode", "decode"):
+            raise ValueError(f"mode={mode!r}")
         b, f = sample.shape[:2]
         banks: Dict[str, torch.Tensor] = {}
         dtype = self.conv_in.weight.dtype
@@ -153,7 +162,34 @@ class AniUNet(nn.Module):
         emb = self.time_embedding(
             timestep_embedding(timesteps, self.conv_in.out_channels).to(dtype)
         )
-        x = self.conv_in(fold(sample).to(dtype))
+        if mode == "decode":
+            x, stack = enc_features
+            stack = list(stack)
+        else:
+            x, stack = self._encode(fold(sample).to(dtype), emb, f, fold,
+                                    pose_cond_fea, spatial, motion_windows)
+        if mode == "encode":
+            return (x, tuple(stack)), banks
+
+        for i, blk in enumerate(self.up_blocks):
+            for j in range(self.layers_per_block + 1):
+                x = blk.resnets[j](torch.cat([x, stack.pop()], dim=1), emb, f)
+                if hasattr(blk, "attentions"):
+                    x = spatial(blk.attentions[j], x, f"up_{i}_{j}")
+                if hasattr(blk, "motion_modules"):
+                    x = blk.motion_modules[j](x, f, motion_windows)
+            if hasattr(blk, "upsamplers"):
+                x = blk.upsamplers[0](x)
+
+        if self.conv_out is None:
+            return None, banks
+        x = self.conv_out(F.silu(self.conv_norm_out(x)))
+        return x.reshape(b, f, *x.shape[1:]), banks
+
+    def _encode(self, x, emb, f, fold, pose_cond_fea, spatial, motion_windows):
+        """conv_in, the down blocks and the mid block on frames-folded
+        ``x``; returns (mid output, skip stack)."""
+        x = self.conv_in(x)
         if pose_cond_fea is not None:
             x = x + fold(pose_cond_fea[0])
         stack = [x]
@@ -176,19 +212,4 @@ class AniUNet(nn.Module):
         x = spatial(mid.attentions[0], x, "mid_0")
         if hasattr(mid, "motion_modules"):
             x = mid.motion_modules[0](x, f, motion_windows)
-        x = mid.resnets[1](x, emb, f)
-
-        for i, blk in enumerate(self.up_blocks):
-            for j in range(self.layers_per_block + 1):
-                x = blk.resnets[j](torch.cat([x, stack.pop()], dim=1), emb, f)
-                if hasattr(blk, "attentions"):
-                    x = spatial(blk.attentions[j], x, f"up_{i}_{j}")
-                if hasattr(blk, "motion_modules"):
-                    x = blk.motion_modules[j](x, f, motion_windows)
-            if hasattr(blk, "upsamplers"):
-                x = blk.upsamplers[0](x)
-
-        if self.conv_out is None:
-            return None, banks
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
-        return x.reshape(b, f, *x.shape[1:]), banks
+        return mid.resnets[1](x, emb, f), stack

@@ -15,8 +15,10 @@ pure function of the shapes:
 * ``"K4"``: any other attention with ``Sq * Skv >= FLASH_MIN_LOGITS``
   and head dim <= 256, with or without the bank-drop mask
   (:func:`ops.kernels.flash_attention`);
-* ``"K6"``: many short sequences (the JAX package's packed small-sequence
-  kernel), not ported yet: a CUDA call raises;
+* ``"K6"``: self attention of many short sequences (<= 32 rows, at least
+  ``SMALL_SEQ_MIN_ROWS`` sequence-heads): :func:`small_seq_attention`
+  (:func:`ops.kernels.ctg_packed`).  The temporal attention reaches it when
+  K3 cannot pack the latent grid (``s % temporal_pack(f) != 0``);
 * ``"single_kv"``: one key (the CLIP image token), whose softmax is 1, so the
   output is V broadcast;
 * ``"sdpa"``: what the JAX package leaves to XLA (CLIP, the VAE's d=512
@@ -40,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from aniportrait_tpu_torch.ops.kernels.autograd import (
+    CtgPacked,
     FlashAttention,
     NatTemporal,
     TokFlash,
@@ -103,6 +106,18 @@ def attention_route(batch: int, sq: int, skv: int, heads: int, head_dim: int,
     return sdpa_route(batch, sq, skv, heads, head_dim)
 
 
+def small_seq_attention(q, k, v):
+    """Self attention of ``(B, S, H, D)`` tensors with a short ``S``
+    (``aniportrait_tpu/ops/attention.py:57-87``): the token-layout
+    ``(B, S, C)`` view through K6 with the base-2 scale."""
+    b, s, h, d = q.shape
+    out = CtgPacked.apply(
+        q.reshape(b, s, h * d), k.reshape(b, s, h * d), v.reshape(b, s, h * d),
+        s, h, math.log2(math.e) / math.sqrt(d),
+    )
+    return out.reshape(b, s, h, d)
+
+
 def scaled_dot_product_attention(q, k, v, kv_split=None, drop_tail=None):
     """Multi-head attention over ``(B, S, H, D)`` tensors; returns
     ``(B, Sq, H, D)`` in q's dtype.  ``kv_split``/``drop_tail``: the keys
@@ -116,11 +131,8 @@ def scaled_dot_product_attention(q, k, v, kv_split=None, drop_tail=None):
         return FlashAttention.apply(q, k, v, *((drop_tail, kv_split) if masked else ()))
     if route == "single_kv":
         return v.expand(b, sq, h, d).to(q.dtype)
-    if route == "K6" and q.is_cuda:
-        raise NotImplementedError(
-            "attention of many short sequences routes to K6 (ctg_packed, "
-            "aniportrait_tpu/ops/pallas_attention.py:1918), not ported yet"
-        )
+    if route == "K6":
+        return small_seq_attention(q, k, v)
     keep = None
     if masked:
         bank = torch.arange(skv, device=q.device) >= kv_split

@@ -9,6 +9,7 @@ from aniportrait_tpu_torch.ops.kernels.flash import (
     tok_flash,
     tok_flash_banked,
 )
+from aniportrait_tpu_torch.ops.kernels.small_seq import ctg_packed
 from aniportrait_tpu_torch.ops.kernels.temporal import nat_temporal
 
 # kernel id (the TPU kernel table in ROADMAP.md) -> wrapper
@@ -19,6 +20,7 @@ KERNELS = {
     "K4": flash_attention,
     "K5a": flash_attention_fwd_lse,
     "K5b": flash_attention_bwd,
+    "K6": ctg_packed,
 }
 
 

@@ -13,6 +13,8 @@ custom VJP of ``aniportrait_tpu/ops/pallas_attention.py``.
 * :class:`NatTemporal` (``nat_packed``, :2134-2156): K3 forward; the
   backward is autograd of the plain version, as the JAX backward is the XLA
   core and not a Pallas kernel.
+* :class:`CtgPacked` (``ctg_packed``, :2194-2215): K6 forward; the backward
+  is autograd of the plain version, as ``_ctg_bwd`` is the XLA core's VJP.
 
 Each forward and backward goes through the kernel wrappers, so on CPU
 tensors they run the plain versions and on CUDA tensors the kernels.
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from aniportrait_tpu_torch.ops.kernels import flash, temporal
+from aniportrait_tpu_torch.ops.kernels import flash, small_seq, temporal
 
 
 def _needs_grad(ctx, n: int) -> bool:
@@ -121,4 +123,25 @@ class NatTemporal(torch.autograd.Function):
         inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
         with torch.enable_grad():
             out = temporal.plain_nat_temporal(*inputs, *ctx.args)
+        return (*torch.autograd.grad(out, inputs, g), None, None, None)
+
+
+class CtgPacked(torch.autograd.Function):
+    """Attention within contiguous ``seq``-row sequences of token-layout
+    ``(..., C)`` tensors; ``scale`` is the base-2 scale of the JAX
+    ``ctg_packed`` contract."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seq, heads, scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if _needs_grad(ctx, 3):
+            ctx.save_for_backward(q, k, v)
+            ctx.args = (seq, heads, scale)
+        return small_seq.ctg_packed(q, k, v, seq, heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = small_seq.plain_ctg_packed(*inputs, *ctx.args)
         return (*torch.autograd.grad(out, inputs, g), None, None, None)

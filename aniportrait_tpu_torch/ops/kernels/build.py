@@ -47,6 +47,8 @@ _SIGNATURES = {
     # dtype, q, k, v, o, batch, frames, s, heads, d, scale, stream
     "aniportrait_temporal_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  ctypes.c_float, _P],
+    # dtype, q, k, v, o, n, seq, heads, d, scale, stream
+    "aniportrait_ctg_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
 }
 
 

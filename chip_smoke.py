@@ -1,31 +1,41 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``aniportrait_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py                  # all phases (what CI runs)
-    python3 chip_smoke.py --phase kernels  # only the kernel phase
-    python3 chip_smoke.py --phase train    # only the two training phases
+    python3 chip_smoke.py                    # all phases (what CI runs)
+    python3 chip_smoke.py --phase kernels    # only the kernel phase
+    python3 chip_smoke.py --phase long-clip  # kernels, references, long clips
+    python3 chip_smoke.py --phase train      # only the two training phases
 
 Phases, each of which fails the run (nonzero exit) on any error:
 
 1. kernels: build the CUDA kernels from ``aniportrait_tpu_torch/csrc`` and
-   hold each of K1-K5b against its plain PyTorch version at the main paths'
+   hold each of K1-K6 against its plain PyTorch version at the main paths'
    widths, in bf16 and float32, with the tolerances below; time the kernel,
    the plain version and the one PyTorch call that computes the same
    function (``F.scaled_dot_product_attention``, forward and backward for
    K5b), and compute the card's bound for the same work.
-2. reference: the micro model at 256 px, 8 frames, 2 steps, float32, run
-   through the pipeline on the GPU (kernels) and on the CPU (plain
-   versions) from the same weights and latents; the final latents must
-   agree.
+2. reference: the micro model through the pipeline on the GPU (kernels) and
+   on the CPU (plain versions) from the same weights and latents, float32,
+   2 steps: at 256 px, 8 frames, exact windowed sampler; and at 112x80 px
+   (a 14x10 latent that K3 cannot pack), 12 frames, window fusion over the
+   8/2 context table (one window wraps around), encoder cache 2.  The final
+   latents must agree; K1-K3, and K6 in the second run, must launch.
 3. pipeline: the full-size model (random bf16 weights from a seed) through
    ``Pose2VideoPipeline`` at 512x512, 16 frames, 25 DDIM steps, CFG 3.5:
    two requests with different inputs and seeds.  K1-K4 must have launched
    during this phase.
-4. training reference: one stage-1 step of the micro model at 256 px,
+4. long clips: the same model at 576x768 (a 72x96 latent whose 9x12 level
+   K3 cannot pack), 28 frames, 25 steps, CFG 3.5, each request through
+   ``run_cases`` on its own pipeline over one set of modules: A, the exact
+   windowed path (context 16, overlap 4, window batch 3); B, window fusion
+   over the same table with the encoder cache at 2 and latent
+   interpolation x2 (55 frames out).  K1-K4 and K6 must launch in A, and
+   K6 in B as often as the model's structure and the cache schedule say.
+5. training reference: one stage-1 step of the micro model at 256 px,
    float32, on the GPU (kernels) and on the CPU (plain versions) from the
    same weights, batch and random draws; the loss and every trainable
    gradient must agree, and K5a and K5b must have launched.
-5. training: the stage-1 trainer at SD-1.5 widths (random weights from seed
+6. training: the stage-1 trainer at SD-1.5 widths (random weights from seed
    0), 512x512, train_bs 2, bf16 compute, float32 AdamW, on seeded random
    batches for six steps, the last one profiled.  Losses must be finite,
    trained weights move, frozen ones (ReferenceNet up_blocks.3, VAE, CLIP)
@@ -82,6 +92,8 @@ SOURCES = {
             "aniportrait_tpu/ops/pallas_attention.py:370"),
     "K5b": ("flash_attention_bwd", "aniportrait_tpu_torch/csrc/flash_bwd.cu",
             "aniportrait_tpu/ops/pallas_attention.py:468"),
+    "K6": ("ctg_packed", "aniportrait_tpu_torch/csrc/small_seq_attn.cu",
+           "aniportrait_tpu/ops/pallas_attention.py:1918"),
 }
 
 
@@ -180,7 +192,7 @@ def kernel_cases(dtype):
     import torch
 
     from aniportrait_tpu_torch.ops import kernels as K
-    from aniportrait_tpu_torch.ops.kernels import flash, temporal
+    from aniportrait_tpu_torch.ops.kernels import flash, small_seq, temporal
 
     g = torch.Generator(device="cuda").manual_seed(0)
     rand = lambda *s: torch.randn(*s, generator=g, device="cuda", dtype=dtype)
@@ -231,6 +243,21 @@ def kernel_cases(dtype):
              lambda x=x, sc=sc: temporal.plain_nat_temporal(*x, f, h, sc * temporal.LN2),
              lambda tok=tok: _sdpa(*tok),
              4.0 * bb * s * h * f * f * d, _nbytes(*x, x[0]))
+
+    # K6: the 576x768 long clip's 9x12 motion modules, 6 rows (3 windows x
+    # CFG 2) x 108 positions = 648 sequences of 16 frames, C = 1280 (8 x
+    # 160); and 24-frame sequences at C = 640, 1001 of them (not a multiple
+    # of the TPU's 128 // 24 = 5 sequences per tile)
+    for n, seq, ch in ((648, 16, 1280), (1001, 24, 640)):
+        dh = ch // h
+        x = [rand(n, seq, ch) for _ in range(3)]
+        heads = [t.view(n, seq, h, dh) for t in x]
+        sc = math.log2(math.e) / math.sqrt(dh)
+        case("K6", f"N={n} seq={seq} C={ch} H={h} d={dh}",
+             lambda x=x, seq=seq, sc=sc: K.ctg_packed(*x, seq, h, sc),
+             lambda x=x, seq=seq, sc=sc: small_seq.plain_ctg_packed(*x, seq, h, sc),
+             lambda heads=heads: _sdpa(*heads),
+             4.0 * n * h * seq * seq * dh, _nbytes(*x, x[0]))
 
     # K4: PoseGuider stage-0 transformer (16 frames, 1024 tokens, 16 x 88);
     # with drop rows: 2048 keys, alternate rows see only the first 1024
@@ -355,44 +382,69 @@ def kernel_phase(results: dict) -> None:
 
 
 # ---------------------------------------------------------------- reference
-def reference_phase() -> None:
-    """Micro model, 256 px, 8 frames, 2 steps, float32: GPU (kernels) vs CPU
-    (plain versions) from the same weights, inputs and initial latents."""
+def _gpu_vs_cpu(cpu_modules, width: int, height: int, frames: int, steps: int,
+                seed: int, **pipe_kw):
+    """One micro sampler run on the GPU and on the CPU from the same
+    weights, inputs and initial latents; returns (max |gpu - cpu| of the
+    final latents, kernel launches of the GPU run, GPU latents finite)."""
     import numpy as np
     import torch
 
-    from aniportrait_tpu_torch import factory
     from aniportrait_tpu_torch.ops import kernels as K
     from aniportrait_tpu_torch.pipelines import Pose2VideoPipeline
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    res, frames, steps = 256, 8, 2
-    rs = np.random.RandomState(3)
-    ref = rs.randint(0, 255, (res, res, 3), np.uint8)
-    poses = [rs.randint(0, 255, (res, res, 3), np.uint8) for _ in range(frames)]
-    lat0 = rs.randn(1, frames, res // 8, res // 8, 4).astype(np.float32)
-    cpu_modules = factory.build_models("micro", "cpu", torch.float32, seed=0)
-    out = {}
-    K.reset_launch_counts()
+    rs = np.random.RandomState(seed)
+    ref = rs.randint(0, 255, (height, width, 3), np.uint8)
+    poses = [rs.randint(0, 255, (height, width, 3), np.uint8) for _ in range(frames)]
+    lat0 = rs.randn(1, frames, height // 8, width // 8, 4).astype(np.float32)
+    out, counts = {}, None
     for device, modules in (("cuda", cpu_modules.to("cuda")), ("cpu", cpu_modules)):
-        pipe = Pose2VideoPipeline(modules, dtype=torch.float32)
-        ref_u8, clip_u8, pose_u8 = pipe.stage_inputs(ref, poses, res, res)
+        K.reset_launch_counts()
+        pipe = Pose2VideoPipeline(modules, dtype=torch.float32, **pipe_kw)
+        ref_u8, clip_u8, pose_u8 = pipe.stage_inputs(ref, poses, width, height)
         ctx, _, banks = pipe._encode_reference(ref_u8, clip_u8)
         pose_fea = pipe._pose_features(pose_u8)
-        sampler = pipe._build_sampler(frames, res // 8, res // 8, steps, 3.5, True)
+        sampler = pipe._build_sampler(frames, height // 8, width // 8, steps, 3.5, True)
         lat = sampler(torch.from_numpy(lat0).to(device), ctx, banks, pose_fea)
         out[device] = lat.cpu().numpy()
-    counts = K.launch_counts()
+        if device == "cuda":
+            counts = K.launch_counts()
     err = float(np.abs(out["cuda"] - out["cpu"]).max())
-    log(f"[reference] micro {res}px {frames}f {steps} steps float32: final latents "
-        f"max |gpu - cpu| = {err:.3e} (tol {REF_LATENT_ATOL:g}); kernel "
-        f"launches on the GPU run {counts}")
-    if not np.isfinite(out["cuda"]).all() or err > REF_LATENT_ATOL:
-        raise SystemExit("reference phase failed: GPU pipeline disagrees with CPU")
-    missing = [k for k in ("K1", "K2", "K3") if counts[k] == 0]
-    if missing:
-        raise SystemExit(f"reference phase: kernels {missing} never launched")
+    return err, counts, bool(np.isfinite(out["cuda"]).all())
+
+
+def reference_phase() -> None:
+    """The micro model, float32, 2 steps, GPU (kernels) vs CPU (plain
+    versions): the exact windowed sampler at 256 px, 8 frames; and a fused,
+    cached, windowed sampler at 112x80 px, 12 frames, where K6 runs."""
+    import torch
+
+    from aniportrait_tpu_torch import factory
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_modules = factory.build_models("micro", "cpu", torch.float32, seed=0)
+    runs = (
+        ("exact windowed 256x256 px, 8 frames", dict(width=256, height=256, frames=8),
+         ("K1", "K2", "K3"), {}),
+        ("fused + cached windowed 112x80 px, 12 frames, context 8/2",
+         dict(width=112, height=80, frames=12), ("K6",),
+         dict(context_frames=8, context_overlap=2, window_fusion=True,
+              fusion_motion="context", encoder_cache_interval=2)),
+    )
+    for i, (label, size, need, pipe_kw) in enumerate(runs):
+        err, counts, finite = _gpu_vs_cpu(cpu_modules, steps=2, seed=3 + i, **size,
+                                          **pipe_kw)
+        log(f"[reference] micro {label}, 2 steps, float32: final latents max |gpu - "
+            f"cpu| = {err:.3e} (tol {REF_LATENT_ATOL:g}); kernel launches on the GPU "
+            f"run {counts}")
+        if not finite or err > REF_LATENT_ATOL:
+            raise SystemExit(f"reference phase failed: GPU pipeline disagrees with CPU "
+                             f"({label})")
+        missing = [k for k in need if counts[k] == 0]
+        if missing:
+            raise SystemExit(f"reference phase ({label}): kernels {missing} never "
+                             "launched")
 
 
 # ----------------------------------------------------------------- pipeline
@@ -449,6 +501,140 @@ def pipeline_phase(results: dict) -> None:
         raise SystemExit(f"pipeline: kernels {never} never launched on the main path")
     for kid in serving:
         results.setdefault(kid, {})["launches"] = counts[kid]
+
+
+# --------------------------------------------------------------- long clips
+def k6_calls(unet, hlat: int, wlat: int, rows: int, frames: int):
+    """(encoder, decoder) K6 launches of one denoising-UNet call on
+    ``rows`` clip rows of ``frames`` frames at a ``hlat x wlat`` latent: the
+    temporal attention calls that ``attention_route`` sends to K6, split
+    into the down + mid blocks and the up blocks."""
+    from aniportrait_tpu_torch.ops.attention import attention_route
+
+    n = len(unet.down_blocks)
+    sizes = [(hlat, wlat)]
+    for _ in range(n - 1):
+        sizes.append(((sizes[-1][0] + 1) // 2, (sizes[-1][1] + 1) // 2))
+
+    def count(modules, level):
+        total = 0
+        for mm in modules:
+            for block in mm.temporal_transformer.transformer_blocks:
+                for attn in block.attention_blocks:
+                    s = sizes[level][0] * sizes[level][1]
+                    d = attn.to_q.out_features // attn.heads
+                    if attention_route(rows, s, s, attn.heads, d, frames=frames) == "K6":
+                        total += 1
+        return total
+
+    def motion(blk):
+        return getattr(blk, "motion_modules", [])
+
+    enc = sum(count(motion(b), i) for i, b in enumerate(unet.down_blocks))
+    enc += count(motion(unet.mid_block), n - 1)
+    dec = sum(count(motion(b), n - 1 - i) for i, b in enumerate(unet.up_blocks))
+    return enc, dec
+
+
+def long_clip_phase(results: dict) -> None:
+    """Requests A (exact windowed) and B (fused, cached, interpolated) at
+    576x768, 28 frames, through ``run_cases`` on two pipelines over one set
+    of full-size bf16 modules."""
+    import numpy as np
+    import torch
+
+    from aniportrait_tpu_torch import factory
+    from aniportrait_tpu_torch.ops import kernels as K
+    from aniportrait_tpu_torch.pipelines import Pose2VideoPipeline
+    from aniportrait_tpu_torch.pipelines.context import uniform_context_windows
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    width, height, frames, steps, cfg = 576, 768, 28, 25, 3.5
+    t0 = time.perf_counter()
+    modules = factory.build_models("full", "cuda", torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    log(f"[long-clip] full-size models built on the GPU in {time.perf_counter() - t0:.1f} s")
+    windows = uniform_context_windows(0, frames, 16, 1, 4)
+    log(f"[long-clip] context table (16/4, closed loop): {windows.tolist()}")
+    n_win = len(windows)
+    hlat, wlat = height // 8, width // 8
+    enc, dec = k6_calls(modules.denoising_unet, hlat, wlat, 2 * n_win, 16)
+    refresh = len(range(0, steps, 2))
+    requests = (
+        ("A", "exact windowed, window batch 3",
+         dict(window_batch=3), dict(), frames, steps * (enc + dec)),
+        ("B", "window fusion (context table), encoder cache 2, interpolation x2",
+         dict(window_fusion=True, fusion_motion="context", encoder_cache_interval=2),
+         dict(interpolation_factor=2), 2 * frames - 1, refresh * enc + steps * dec),
+    )
+    never = set()
+    for i, (name, label, pipe_kw, call_kw, out_frames, k6_expected) in enumerate(requests):
+        pipe = Pose2VideoPipeline(modules, dtype=torch.bfloat16, context_frames=16,
+                                  context_overlap=4, **pipe_kw)
+        case = _long_clip_case(name, 200 + i, width, height, frames)
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (key, video), = pipe.run_cases([case], width, height, video_length=frames,
+                                       num_inference_steps=steps, guidance_scale=cfg,
+                                       seed=i, decode_chunk=8, **call_kw)
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[long-clip] request {key} ({label}): {width}x{height}, {frames} frames, "
+            f"{steps} steps, CFG {cfg}, bf16: {dt:.2f} s, {frames / dt:.3f} denoised "
+            f"frames/s, {out_frames} frames out; phases {pipe.timer.report()}; peak "
+            f"device memory {peak:.2f} GiB; kernel launches {counts} (K6 reckoned "
+            f"{k6_expected})")
+        if video.shape != (out_frames, height, width, 3):
+            raise SystemExit(f"long clip {name}: output shape {video.shape}")
+        if not np.isfinite(video).all() or video.min() < 0 or video.max() > 1:
+            raise SystemExit(f"long clip {name}: output not finite in [0, 1]")
+        if counts["K6"] != k6_expected:
+            raise SystemExit(f"long clip {name}: K6 launched {counts['K6']} times, "
+                             f"the model and schedule say {k6_expected}")
+        need = ("K1", "K2", "K3", "K4", "K6") if name == "A" else ("K6",)
+        never |= {k for k in need if counts[k] == 0}
+        results.setdefault("K6", {}).setdefault("launches", 0)
+        results["K6"]["launches"] += counts["K6"]
+        del pipe, video
+        gc.collect()
+        torch.cuda.empty_cache()
+    if never:
+        raise SystemExit(f"long clips: kernels {sorted(never)} never launched")
+
+    # where the time goes: request A's configuration at 3 steps under the
+    # profiler (device activity only)
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe = Pose2VideoPipeline(modules, dtype=torch.bfloat16, context_frames=16,
+                              context_overlap=4, window_batch=3)
+    case = _long_clip_case("A", 200, width, height, frames)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe(case["ref_image"], case["pose_images"], None, width, height, frames,
+             num_inference_steps=3, guidance_scale=cfg, seed=0)
+        wall = time.perf_counter() - t0
+    totals, busy, idle = _profile_families(prof, wall)
+    if busy:
+        shares = ", ".join(f"{f} {s:.3f} s ({s / busy:.1%})"
+                           for f, s in sorted(totals.items(), key=lambda x: -x[1]))
+        log(f"[long-clip] profiled request A at 3 steps: {wall:.3f} s wall, {busy:.3f} s "
+            f"device busy, idle share {idle:.1%}; phases {pipe.timer.report()}; by "
+            f"family: {shares}")
+    else:
+        log("[long-clip] profiled request: the profiler gave no device time (not measured)")
+
+
+def _long_clip_case(key: str, seed: int, width: int, height: int, frames: int) -> dict:
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    return dict(ref_image=rs.randint(0, 255, (height, width, 3), np.uint8),
+                pose_images=[rs.randint(0, 255, (height, width, 3), np.uint8)
+                             for _ in range(frames)], key=key)
 
 
 # ----------------------------------------------------------------- training
@@ -524,7 +710,9 @@ def _profile_families(prof, wall_s: float):
     """Device seconds by kernel family from a torch.profiler run, and the
     device's idle share of the wall time."""
     families = (("flash backward (K5b)", ("flash_bwd",)),
-                ("flash forward (K2, K5a)", ("flash_fwd",)),
+                ("flash forward (K1, K2, K4, K5a)", ("flash_fwd",)),
+                ("temporal (K3)", ("temporal_kernel",)),
+                ("short sequences (K6)", ("ctg_kernel",)),
                 ("GEMM", ("gemm", "cutlass", "xmma", "cublas", "matmul")),
                 ("convolution", ("conv", "cudnn", "implicit", "winograd", "fft")),
                 ("norm", ("norm",)),
@@ -640,7 +828,8 @@ def training_phase(results: dict) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=("all", "kernels", "train"), default="all")
+    parser.add_argument("--phase", choices=("all", "kernels", "long-clip", "train"),
+                        default="all")
     args = parser.parse_args()
 
     import torch
@@ -653,13 +842,16 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     results: dict = {}
-    if args.phase in ("all", "kernels"):
+    if args.phase in ("all", "kernels", "long-clip"):
         kernel_phase(results)
-    if args.phase == "all":
+    if args.phase in ("all", "long-clip"):
         reference_phase()
+    if args.phase == "all":
         pipeline_phase(results)
         gc.collect()
         torch.cuda.empty_cache()
+    if args.phase in ("all", "long-clip"):
+        long_clip_phase(results)
     if args.phase in ("all", "train"):
         train_reference_phase()
         training_phase(results)

@@ -10,11 +10,15 @@ Shapes are small and odd (sequence lengths that are not multiples of the
 error only) and bf16.
 """
 
+import copy
+import math
+
+import numpy as np
 import pytest
 import torch
 
 from aniportrait_tpu_torch.ops import kernels as K
-from aniportrait_tpu_torch.ops.kernels import flash, temporal
+from aniportrait_tpu_torch.ops.kernels import flash, small_seq, temporal
 
 # float32: summation order only; bf16: one output rounding step
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
@@ -57,6 +61,44 @@ def test_temporal_matches_plain(rand, dtype, frames):
     torch.testing.assert_close(K.nat_temporal(*x, frames, 2, 0.3),
                                temporal.plain_nat_temporal(*x, frames, 2, 0.3 * temporal.LN2),
                                **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seq,heads,d", [(16, 8, 160), (24, 2, 40), (2, 3, 80), (32, 1, 80)])
+def test_ctg_packed_matches_plain(rand, dtype, seq, heads, d):
+    """K6 at the 576x768 motion-module width (16 frames, 8 x 160) and at
+    other sequence lengths and head dims; 37 sequences, a count no packing
+    divides."""
+    x = [rand(dtype, 37, seq, heads * d) for _ in range(3)]
+    scale = math.log2(math.e) / math.sqrt(d)
+    before = K.ctg_packed.launches
+    torch.testing.assert_close(K.ctg_packed(*x, seq, heads, scale),
+                               small_seq.plain_ctg_packed(*x, seq, heads, scale),
+                               **TOL[dtype])
+    assert K.ctg_packed.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrap", [False, True])
+def test_windowed_motion_module_matches_cpu(rand, wrap):
+    """A motion module over 20 frames with 16-frame windows (contiguous, or
+    wrapping around the clip: the gather branch) on a 5 x 9 grid, which K3
+    cannot pack: K6 runs on the GPU and the result meets the CPU's."""
+    from aniportrait_tpu_torch.models.motion_module import MotionModule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    windows = np.array([[*range(12, 20), *range(8)], list(range(4, 20))] if wrap
+                       else [list(range(16)), list(range(4, 20))])
+    cpu = MotionModule(64, heads=8).eval()
+    gpu = copy.deepcopy(cpu).cuda()
+    x = rand(torch.float32, 2 * 20, 64, 5, 9)
+    before = K.ctg_packed.launches
+    with torch.no_grad():
+        got = gpu(x, 20, windows)
+        ref = cpu(x.cpu(), 20, windows)
+    assert K.ctg_packed.launches > before
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

@@ -8,7 +8,9 @@
     autograd Functions around K1, K2 and K4, equal the JAX custom VJPs on
     their Pallas kernels in interpret mode (``jax.grad``), same tolerance.
 (e) attention_route at the full-size main path's shapes gives the kernel the
-    TPU table assigns (K1 banked, K2 token, K3 temporal, K4 head layout).
+    TPU table assigns (K1 banked, K2 token, K3 temporal, K4 head layout, K6
+    temporal on a latent grid K3 cannot pack).  K6 itself is tested in
+    tests/test_torch_small_seq.py.
 The CUDA kernels themselves are tested in tests/test_torch_cuda.py.
 """
 
@@ -213,7 +215,13 @@ MAIN_PATH_ROUTES = [
     (dict(batch=32, sq=4096, skv=1, heads=8, head_dim=40), "single_kv"),
     (dict(batch=1, sq=257, skv=257, heads=16, head_dim=64), "sdpa"),  # CLIP
     (dict(batch=8, sq=4096, skv=4096, heads=1, head_dim=512), "sdpa"),  # VAE
-    # frame counts the temporal kernel cannot pack: JAX's K6 (not ported)
+    # 576x768 long clip (72x96 latent), 3 windows x CFG 2 = 6 rows of 16
+    # frames: the three upper levels pack (s % 8 == 0), 9x12 = 108 does not
+    (dict(batch=6, sq=6912, skv=6912, heads=8, head_dim=40, frames=16), "K3"),
+    (dict(batch=6, sq=1728, skv=1728, heads=8, head_dim=80, frames=16), "K3"),
+    (dict(batch=6, sq=432, skv=432, heads=8, head_dim=160, frames=16), "K3"),
+    (dict(batch=6, sq=108, skv=108, heads=8, head_dim=160, frames=16), "K6"),
+    # latent grids the temporal kernel cannot pack go to K6 as well
     (dict(batch=2, sq=4100, skv=4100, heads=8, head_dim=40, frames=16), "K6"),
     (dict(batch=2, sq=64, skv=64, heads=8, head_dim=40, frames=1), "single_kv"),
 ]

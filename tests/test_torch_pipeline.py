@@ -8,12 +8,16 @@ _decode.  Covered: the whole-clip single window and overlapping windows
 (L=6, context 4, overlap 2, window batch 2: three windows, one wrapping
 around, padded to four).
 
-Bounds: host resizes differ by at most 1 level (torch bicubic vs OpenCV);
-encoder outputs 1e-3; final latents 1e-3 abs + 1e-3 rel (two float32 UNet
-passes with CFG 3.5 amplifying the difference); uint8 frames decoded from
-the same latents differ by at most 1 level (a rounding flip).
+Bounds: host resizes equal (the port's numpy INTER_CUBIC against OpenCV's
+portable code, IPP off); encoder outputs 1e-3; final latents 1e-3 abs +
+1e-3 rel (two float32 UNet passes with CFG 3.5 amplifying the difference);
+uint8 frames decoded from the same latents differ by at most 1 level (a
+rounding flip).
 """
 
+import contextlib
+
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -26,6 +30,7 @@ from aniportrait_tpu.pipelines.pose2vid import PipelineModules as JaxModules
 from aniportrait_tpu.pipelines.pose2vid import Pose2VideoPipeline as JaxPipeline
 from aniportrait_tpu_torch import factory
 from aniportrait_tpu_torch.pipelines import Pose2ImagePipeline, Pose2VideoPipeline
+from aniportrait_tpu_torch.utils.image import resize
 from aniportrait_tpu_torch.weights import from_jax
 
 KW = dict(context_frames=4, context_overlap=2, window_batch=2)
@@ -49,8 +54,9 @@ def fill(tree, seed=0):
     return jax.tree_util.tree_map_with_path(leaf, tree)
 
 
-@pytest.fixture(scope="module")
-def pipes():
+def build_modules():
+    """The micro JAX modules with numpy-filled weights and the port's
+    modules holding the same weights."""
     defs = build_model_defs("micro", use_motion_module=True)
     vals = fill(jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), _abstract_shapes(defs)))
     jm = JaxModules(
@@ -71,7 +77,47 @@ def pipes():
                                                        jm.pose_guider_variables)),
     ):
         model.load_state_dict(state)
+    return jm, pm
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    jm, pm = build_modules()
     return JaxPipeline(jm, **KW), Pose2VideoPipeline(pm, **KW)
+
+
+@contextlib.contextmanager
+def opencv_portable():
+    """OpenCV with its IPP acceleration off: IPP's INTER_CUBIC bytes depend
+    on the CPU code path it dispatches to; the portable code's do not."""
+    was = cv2.ipp.useIPP()
+    cv2.ipp.setUseIPP(False)
+    try:
+        yield
+    finally:
+        cv2.ipp.setUseIPP(was)
+
+
+# (source H, W) -> (width, height): the pipeline's ratios (test inputs,
+# portrait requests from square and 720p sources, the CLIP image)
+RESIZES = [((70, 70), (64, 64)), ((512, 512), (576, 768)), ((720, 1280), (576, 768)),
+           ((1280, 720), (576, 768)), ((512, 512), (224, 224)), ((64, 64), (224, 224))]
+
+
+@pytest.mark.parametrize("src,dst", RESIZES)
+def test_resize_matches_opencv_bytes(src, dst):
+    """utils.image.resize gives the bytes of OpenCV's INTER_CUBIC on noise,
+    on a smooth image and on a black-and-white one (the extremes saturate)."""
+    rs = np.random.RandomState(src[0] + dst[1])
+    yy, xx = np.mgrid[0:src[0], 0:src[1]]
+    images = [rs.randint(0, 256, (*src, 3)).astype(np.uint8),
+              np.stack([127 + 120 * np.sin(xx / 7.0 + c) * np.cos(yy / 5.0)
+                        for c in range(3)], -1).astype(np.uint8),
+              (255 * rs.randint(0, 2, (*src, 3))).astype(np.uint8)]
+    for img in images:
+        with opencv_portable():
+            ref = cv2.resize(img, dst, interpolation=cv2.INTER_CUBIC)
+        np.testing.assert_array_equal(resize(img, *dst), ref)
 
 
 def _close(port, ref, atol=1e-3, rtol=1e-3):
@@ -86,11 +132,11 @@ def test_pose2vid_slice_matches_jax(pipes, length):
     ref = rs.randint(0, 255, (70, 70, 3), np.uint8)
     poses = [rs.randint(0, 255, (70, 70, 3), np.uint8) for _ in range(length)]
 
-    staged_j = jp.stage_inputs(ref, poses, RES, RES, device=False)
+    with opencv_portable():
+        staged_j = jp.stage_inputs(ref, poses, RES, RES, device=False)
     staged_p = pp.stage_inputs(ref, poses, RES, RES, device=False)
     for a, b in zip(staged_p, staged_j):
-        assert a.shape == b.shape
-        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+        np.testing.assert_array_equal(a, b)
     ref_u8, clip_u8, pose_u8 = staged_j  # both sides go on from the same pixels
 
     with jax.default_matmul_precision("highest"):
