@@ -20,6 +20,27 @@
 //       denominator l per row in registers, so the LSE is m + log(l); a fully
 //       masked row gets output 0 and LSE 0, the TPU kernel's contract.
 //
+// and, through the softmax-mode template parameter MODE, the three fixed-shift
+// token-layout kernels of the token-kernel A/B (aniportrait_tok_flash_fwd):
+//   K7  flash_attention_tokens_noshift / _tokns_fwd_kernel (NOSHIFT_E): q
+//       arrives multiplied by 1/sqrt(d) in its dtype, p = exp(logit) with no
+//       shift, rounded to v's dtype; l sums the rounded p.
+//   K8  flash_attention_tokens_bounded / _tokb_fwd_kernel (BOUNDED_2): q
+//       arrives multiplied by log2(e)/sqrt(d) in its dtype, p =
+//       exp2(logit - bound[row, head]) with the Cauchy-Schwarz bound an input;
+//       l sums the unrounded p, PV takes p rounded to v's dtype.
+//   K2  flash_attention_tokens_unshifted / _tokf_fwd_kernel in its TPU form
+//       (UNSHIFTED_2): q multiplied by log2(e)/sqrt(d) in its dtype at the
+//       load, p = exp2(logit); l sums the unrounded p.
+// Only the logits stage and the epilogue differ from RUNMAX: no max, no
+// rescale of the accumulator, output acc / (l == 0 ? 1 : l).  Each of these
+// computes its Pallas caller's guard (a row-head is bad if l is not > 1e-30;
+// for K7 and K2 also if l or one of its outputs is not finite) and ORs it,
+// once per block, into an int32 flag in device memory.  The guard's fallback,
+// the caller's lax.cond to the running-max kernel, is a second launch of the
+// RUNMAX mode into the same output that every block leaves at once unless the
+// flag is set: no host round trip, as lax.cond has none.
+//
 // What bounds it on an H100: at the main path's shapes (S = 4096, d = 40,
 // 8 heads, 16 rows; 4096 x 8192 logits per head for K1) the work is
 // 4*S*Skv*d FLOPs per head against S*d + 2*Skv*d loaded elements, far above
@@ -55,6 +76,12 @@ constexpr int LDQ = BQ + 4;   // q tile stored transposed: [DP][LDQ]
 constexpr int LDK = BKV + 4;  // k tile stored transposed: [DP][LDK]
 constexpr int LDP = BQ + 4;   // probabilities stored transposed: [BKV][LDP]
 
+// softmax modes (the codes of aniportrait_tok_flash_fwd's `mode`)
+constexpr int RUNMAX = 0;       // online running max: K1, K2, K4, K5a
+constexpr int NOSHIFT_E = 1;    // K7
+constexpr int BOUNDED_2 = 2;    // K8
+constexpr int UNSHIFTED_2 = 3;  // K2 in its TPU form
+
 struct FlashArgs {
   const void* q;
   const void* k;
@@ -65,7 +92,13 @@ struct FlashArgs {
   void* o;
   float* lse;           // (B, heads, sq) float32, written when LSE is set
   int batch, sq, skv, sbank, heads, d, rep, kv_split;
+  // RUNMAX: q's float32 multiplier scale * log2(e); UNSHIFTED_2: the
+  // multiplier applied in q's dtype; NOSHIFT_E, BOUNDED_2: unused (q
+  // arrives scaled)
   float scale_log2;
+  const float* bound;   // BOUNDED_2: (B, sq, heads) float32 base-2 bound
+  int32_t* guard;       // modes other than RUNMAX: the flag they OR into
+  const int32_t* pred;  // RUNMAX: run only if *pred != 0 (nullptr: always)
 };
 
 template <int DP>
@@ -73,9 +106,11 @@ constexpr size_t flash_smem_bytes() {
   return sizeof(float) * (DP * LDQ + DP * LDK + BKV * DP + BKV * LDP);
 }
 
-template <typename T, int DP, bool LSE>
+template <typename T, int DP, int MODE, bool LSE>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FlashArgs a) {
+  static_assert(MODE == RUNMAX || !LSE, "the LSE is a RUNMAX output");
   constexpr int DPT = DP / 16;
+  if (MODE == RUNMAX && a.pred != nullptr && *a.pred == 0) return;
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + DP * LDQ;
@@ -92,19 +127,27 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FlashArgs a) {
   const int ld = a.heads * d;
 
   const T* q = static_cast<const T*>(a.q) + (size_t)b * a.sq * ld + h * d;
+  const float q_mult = MODE == UNSHIFTED_2 ? round_as<T>(a.scale_log2) : a.scale_log2;
   for (int i = tid; i < BQ * DP; i += THREADS) {
     const int r = i / DP;
     const int c = i - r * DP;
     float x = 0.f;
-    if (q0 + r < a.sq && c < d) x = to_f32(q[(size_t)(q0 + r) * ld + c]) * a.scale_log2;
+    if (q0 + r < a.sq && c < d) {
+      x = to_f32(q[(size_t)(q0 + r) * ld + c]);
+      if (MODE == RUNMAX) x *= q_mult;
+      if (MODE == UNSHIFTED_2) x = round_as<T>(x * q_mult);
+    }
     sQ[c * LDQ + r] = x;
   }
 
-  float m[8], l[8], acc[8][DPT];
+  float m[8], l[8], acc[8][DPT], bnd[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     m[i] = neg_inf();
     l[i] = 0.f;
+    bnd[i] = 0.f;
+    const int r = q0 + ty * 8 + i;
+    if (MODE == BOUNDED_2 && r < a.sq) bnd[i] = a.bound[((size_t)b * a.sq + r) * a.heads + h];
 #pragma unroll
     for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
   }
@@ -166,27 +209,52 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FlashArgs a) {
         }
       }
 
+      if (MODE == RUNMAX) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+        for (int i = 0; i < 8; ++i) {
+          float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
 #pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        const float m_new = fmaxf(m[i], mx);  // finite: the row sees column 0
-        const float alpha = exp2f(m[i] - m_new);
-        float rs = 0.f;
+          for (int off = 8; off > 0; off >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          const float m_new = fmaxf(m[i], mx);  // finite: the row sees column 0
+          const float alpha = exp2f(m[i] - m_new);
+          float rs = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float p = exp2f(s[i][j] - m_new);
-          s[i][j] = p;
-          rs += p;
+          for (int j = 0; j < 4; ++j) {
+            const float p = exp2f(s[i][j] - m_new);
+            s[i][j] = p;
+            rs += p;
+          }
+#pragma unroll
+          for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
+          l[i] = l[i] * alpha + rs;
+          m[i] = m_new;
+#pragma unroll
+          for (int c = 0; c < DPT; ++c) acc[i][c] *= alpha;
         }
+      } else {
+        // a fixed shift: p depends on this tile alone; masked columns
+        // (-inf) give p = 0
 #pragma unroll
-        for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-        l[i] = l[i] * alpha + rs;
-        m[i] = m_new;
+        for (int i = 0; i < 8; ++i) {
+          float rs = 0.f;
 #pragma unroll
-        for (int c = 0; c < DPT; ++c) acc[i][c] *= alpha;
+          for (int j = 0; j < 4; ++j) {
+            float p;
+            if (MODE == NOSHIFT_E) {
+              p = round_as<T>(expf(s[i][j]));  // l sums the rounded p
+              rs += p;
+            } else {
+              p = exp2f(MODE == BOUNDED_2 ? s[i][j] - bnd[i] : s[i][j]);
+              rs += p;  // l sums the unrounded p
+              p = round_as<T>(p);
+            }
+            s[i][j] = p;
+          }
+#pragma unroll
+          for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
+          l[i] += rs;
+        }
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -210,10 +278,28 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FlashArgs a) {
   }
 
   T* o = static_cast<T*>(a.o) + (size_t)b * a.sq * ld + h * d;
+  bool bad = false;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = q0 + ty * 8 + i;
     if (r >= a.sq) continue;
+    if (MODE != RUNMAX) {
+      // the guard of the Pallas caller; !(l > 1e-30) also catches NaN
+      bad |= !(l[i] > 1e-30f);
+      if (MODE != BOUNDED_2) bad |= !isfinite(l[i]);
+      const float safe = l[i] == 0.f ? 1.f : l[i];
+#pragma unroll
+      for (int c = 0; c < DPT; ++c) {
+        const int col = tx * DPT + c;
+        if (col >= d) continue;
+        const float x = acc[i][c] / safe;
+        // K7 tests the stored output, K2 the float32 one before the store
+        if (MODE == NOSHIFT_E) bad |= !isfinite(round_as<T>(x));
+        if (MODE == UNSHIFTED_2) bad |= !isfinite(x);
+        store_f32(&o[(size_t)r * ld + col], x);
+      }
+      continue;
+    }
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
     if (LSE && tx == 0) {
       // m is in base-2 units (q carries log2(e)): lse = ln 2 * (m + log2 l)
@@ -226,27 +312,53 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FlashArgs a) {
       if (col < d) store_f32(&o[(size_t)r * ld + col], acc[i][c] * inv);
     }
   }
+  if (MODE != RUNMAX) {
+    if (__syncthreads_or(bad) && tid == 0) atomicOr(a.guard, 1);
+  }
 }
 
-template <typename T, int DP, bool LSE>
+template <typename T, int DP, int MODE, bool LSE>
 cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
   constexpr size_t smem = flash_smem_bytes<DP>();
-  cudaError_t err = set_smem(flash_fwd_kernel<T, DP, LSE>, smem);
+  cudaError_t err = set_smem(flash_fwd_kernel<T, DP, MODE, LSE>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.sq + BQ - 1) / BQ, a.heads, a.batch);
-  flash_fwd_kernel<T, DP, LSE><<<grid, THREADS, smem, stream>>>(a);
+  flash_fwd_kernel<T, DP, MODE, LSE><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, int DP>
 cudaError_t launch_lse(const FlashArgs& a, cudaStream_t stream) {
-  return a.lse != nullptr ? launch<T, DP, true>(a, stream) : launch<T, DP, false>(a, stream);
+  return a.lse != nullptr ? launch<T, DP, RUNMAX, true>(a, stream)
+                          : launch<T, DP, RUNMAX, false>(a, stream);
 }
 
 template <typename T>
 cudaError_t dispatch(const FlashArgs& a, cudaStream_t stream) {
 #define ANIPORTRAIT_CASE(DP) return launch_lse<T, DP>(a, stream);
   ANIPORTRAIT_HEAD_DIM_SWITCH(a.d, ANIPORTRAIT_CASE)
+#undef ANIPORTRAIT_CASE
+}
+
+// The fixed-shift mode into `fast.o`, then the guard's fallback: RUNMAX into
+// the same output, predicated on the flag the first launch sets.
+template <typename T, int DP>
+cudaError_t launch_tok(int mode, const FlashArgs& fast, const FlashArgs& fallback,
+                       cudaStream_t stream) {
+  cudaError_t err;
+  if (mode == NOSHIFT_E) err = launch<T, DP, NOSHIFT_E, false>(fast, stream);
+  else if (mode == BOUNDED_2) err = launch<T, DP, BOUNDED_2, false>(fast, stream);
+  else if (mode == UNSHIFTED_2) err = launch<T, DP, UNSHIFTED_2, false>(fast, stream);
+  else return cudaErrorInvalidValue;
+  if (err != cudaSuccess) return err;
+  return launch<T, DP, RUNMAX, false>(fallback, stream);
+}
+
+template <typename T>
+cudaError_t dispatch_tok(int mode, const FlashArgs& fast, const FlashArgs& fallback,
+                         cudaStream_t stream) {
+#define ANIPORTRAIT_CASE(DP) return launch_tok<T, DP>(mode, fast, fallback, stream);
+  ANIPORTRAIT_HEAD_DIM_SWITCH(fast.d, ANIPORTRAIT_CASE)
 #undef ANIPORTRAIT_CASE
 }
 
@@ -265,9 +377,38 @@ extern "C" int aniportrait_flash_fwd(int dtype, const void* q, const void* k, co
   using namespace aniportrait;
   FlashArgs a{q, k, v, kb, vb, static_cast<const int32_t*>(drop), o,
               static_cast<float*>(lse), batch, sq, skv, sbank, heads, d, rep, kv_split,
-              scale * kLog2e};
+              scale * kLog2e, nullptr, nullptr, nullptr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16) return static_cast<int>(dispatch<__nv_bfloat16>(a, st));
   if (dtype == kFloat32) return static_cast<int>(dispatch<float>(a, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K7 / K8 / K2's TPU form (mode 1 / 2 / 3) with the guard and its fallback.
+// q, k, v, o: (batch, S, heads * d) token layout, contiguous.  qs: q as the
+// mode reads it (modes 1, 2: pre-scaled by the caller; mode 3: q itself,
+// multiplied by q_scale, rounded to q's dtype, in the kernel).  bound:
+// (batch, sq, heads) float32 (mode 2) or null.  guard: one int32, zero on
+// entry; left nonzero if the fast path's guard tripped, in which case o holds
+// the running-max result computed from q with the natural softmax `scale`.
+extern "C" int aniportrait_tok_flash_fwd(int dtype, int mode, const void* q, const void* qs,
+                                         const void* k, const void* v, const void* bound,
+                                         void* o, void* guard, int batch, int sq, int skv,
+                                         int heads, int d, float scale, float q_scale,
+                                         void* stream) {
+  using namespace aniportrait;
+  if (mode < NOSHIFT_E || mode > UNSHIFTED_2 || (mode == BOUNDED_2 && bound == nullptr) ||
+      guard == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int32_t* flag = static_cast<int32_t*>(guard);
+  const FlashArgs fast{qs, k, v, nullptr, nullptr, nullptr, o, nullptr, batch, sq, skv, 0,
+                       heads, d, 1, 0, q_scale, static_cast<const float*>(bound), flag,
+                       nullptr};
+  const FlashArgs fallback{q, k, v, nullptr, nullptr, nullptr, o, nullptr, batch, sq, skv, 0,
+                           heads, d, 1, 0, scale * kLog2e, nullptr, nullptr, flag};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16)
+    return static_cast<int>(dispatch_tok<__nv_bfloat16>(mode, fast, fallback, st));
+  if (dtype == kFloat32) return static_cast<int>(dispatch_tok<float>(mode, fast, fallback, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

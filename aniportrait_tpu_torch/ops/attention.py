@@ -26,6 +26,10 @@ pure function of the shapes:
   boolean mask where the JAX package adds a -1e9 bias):
   ``F.scaled_dot_product_attention``.
 
+:func:`small_seq_attention_folded` is the head-folded form of the short
+sequence attention through K9 (:func:`ops.kernels.ssa_packed`); no route
+takes it, as no route of the JAX package takes ``ssa_packed``.
+
 Every kernel route goes through the kernel's ``torch.autograd.Function``
 (``ops/kernels/autograd.py``): where an input needs a gradient, K1, K2 and K4
 keep what their backward needs and the backward runs K5a and K5b (the flash
@@ -45,9 +49,11 @@ from aniportrait_tpu_torch.ops.kernels.autograd import (
     CtgPacked,
     FlashAttention,
     NatTemporal,
+    SsaPacked,
     TokFlash,
     TokFlashBanked,
 )
+from aniportrait_tpu_torch.ops.kernels.flash import scaled_in_dtype
 
 # Same thresholds as aniportrait_tpu/ops/attention.py
 FLASH_MIN_LOGITS = 1 << 20
@@ -116,6 +122,26 @@ def small_seq_attention(q, k, v):
         s, h, math.log2(math.e) / math.sqrt(d),
     )
     return out.reshape(b, s, h, d)
+
+
+def small_seq_attention_folded(q, k, v):
+    """Self attention of ``(B, S, H, D)`` tensors with a short ``S`` through
+    K9: the head-folded packing of ``aniportrait_tpu/ops/attention.py:89-119``
+    with the Pallas kernel's tile math.  The ``B * H`` sequences are folded
+    out of the heads, q is scaled by ``1/sqrt(D)`` in its dtype, and
+    ``128 // S`` sequences fill a tile of ``(128 // S) * S`` rows; the last
+    tile is filled up with dead (zero) sequences, which are sliced away."""
+    b, s, h, d = q.shape
+    g = max(1, 128 // s)
+    rows = b * h
+    pad = (-rows) % g
+
+    def pack(x):  # (B, S, H, D) -> (n, g * S, D)
+        x = x.permute(0, 2, 1, 3).reshape(rows, s, d)
+        return F.pad(x, (0, 0, 0, 0, 0, pad)).reshape(-1, g * s, d)
+
+    out = SsaPacked.apply(pack(scaled_in_dtype(q, d ** -0.5)), pack(k), pack(v), s)
+    return out.reshape(-1, s, d)[:rows].reshape(b, h, s, d).permute(0, 2, 1, 3)
 
 
 def scaled_dot_product_attention(q, k, v, kv_split=None, drop_tail=None):

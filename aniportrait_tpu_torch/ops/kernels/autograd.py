@@ -15,6 +15,8 @@ custom VJP of ``aniportrait_tpu/ops/pallas_attention.py``.
   core and not a Pallas kernel.
 * :class:`CtgPacked` (``ctg_packed``, :2194-2215): K6 forward; the backward
   is autograd of the plain version, as ``_ctg_bwd`` is the XLA core's VJP.
+* :class:`SsaPacked` (``ssa_packed``, :2252-2271): K9 forward; the backward
+  is autograd of the plain version, as ``_ssa_bwd`` is the XLA core's VJP.
 
 Each forward and backward goes through the kernel wrappers, so on CPU
 tensors they run the plain versions and on CUDA tensors the kernels.
@@ -145,3 +147,24 @@ class CtgPacked(torch.autograd.Function):
         with torch.enable_grad():
             out = small_seq.plain_ctg_packed(*inputs, *ctx.args)
         return (*torch.autograd.grad(out, inputs, g), None, None, None)
+
+
+class SsaPacked(torch.autograd.Function):
+    """Attention within groups of ``seq`` rows of head-folded ``(n, T, dp)``
+    tiles, q pre-scaled; rows from ``n_valid_rows`` on are dead (the JAX
+    ``ssa_packed`` contract)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seq, n_valid_rows=None):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if _needs_grad(ctx, 3):
+            ctx.save_for_backward(q, k, v)
+            ctx.args = (seq, n_valid_rows)
+        return small_seq.ssa_packed(q, k, v, seq, n_valid_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = small_seq.plain_ssa_packed(*inputs, *ctx.args)
+        return (*torch.autograd.grad(out, inputs, g), None, None)

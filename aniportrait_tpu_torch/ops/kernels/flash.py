@@ -20,11 +20,27 @@ forward kernel:
 
 The gradients reach these through ``ops/kernels/autograd.py``.
 
+Three more entry points run the forward kernel in a fixed-shift softmax mode
+(the token-kernel A/B, ``aniportrait_tpu_torch/scripts/bench_tok_kernel.py``),
+each with its Pallas caller's overflow guard and the fallback to the running
+max that the guard selects:
+
+* :func:`tok_flash_noshift` (K7, ``flash_attention_tokens_noshift``);
+* :func:`tok_flash_bounded` (K8, ``flash_attention_tokens_bounded``);
+* :func:`tok_flash_unshifted` (K2u: K2's TPU form,
+  ``flash_attention_tokens_unshifted``).
+
+Each returns what :func:`tok_flash` returns and keeps the guard's int32 flag
+(0: the fast path's output stands; 1: it tripped and the running-max result
+replaced it) in ``.last_guard``.
+
 On a CPU tensor each wrapper returns its plain version; on a CUDA tensor it
 launches the kernel or raises.  Each counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -99,6 +115,92 @@ def plain_tok_flash_banked(q, k, v, kb, vb, heads, rep):
     return plain_tok_flash(q, kc, vc, heads)
 
 
+# Softmax modes of the forward kernel (csrc/flash_attn.cu)
+NOSHIFT_E, BOUNDED_2, UNSHIFTED_2 = 1, 2, 3
+GUARD_MIN_L = 1e-30  # the Pallas callers' least softmax denominator
+
+
+def scaled_in_dtype(x, scale: float):
+    """``x * scale`` in x's dtype, the scale rounded to it first (JAX's
+    ``x * jnp.asarray(scale, x.dtype)``)."""
+    return x * torch.tensor(scale, dtype=x.dtype, device=x.device)
+
+
+def cauchy_schwarz_bound(q, k, heads: int, scale: float = 1.0):
+    """K8's per-(batch, row, head) logit bound ``scale * |q_h| * max_kv
+    |k_h|``, float32 ``(B, Sq, heads)`` (``_bounds_cauchy_schwarz``, without
+    the TPU's 128-lane padding).  Torch reductions, as it is XLA outside the
+    Pallas call."""
+    b, sq, c = q.shape
+    d = c // heads
+    qn2 = q.float().square().reshape(b, sq, heads, d).sum(-1)
+    kn = k.float().square().reshape(b, -1, heads, d).sum(-1).amax(1).sqrt()
+    return (scale * qn2.sqrt() * kn[:, None, :]).contiguous()
+
+
+def _fixed_shift(q, k, v, heads, mode, bound=None):
+    """The fast path of one fixed-shift mode, step by step as its Pallas
+    body computes it; ``q`` arrives scaled as the mode reads it.  Returns
+    ``(out, bad)``: out in q's dtype and the guard's verdict."""
+    b, sq, c = q.shape
+    logits = torch.einsum("bqhd,bkhd->bhqk", _heads(q, heads).float(),
+                          _heads(k, heads).float())
+    if mode == NOSHIFT_E:
+        p = torch.exp(logits).to(v.dtype).float()  # l sums the rounded p
+        l = p.sum(-1)
+    else:
+        if mode == BOUNDED_2:
+            logits = logits - bound.permute(0, 2, 1)[..., None]
+        p = torch.exp2(logits)
+        l = p.sum(-1)  # the unrounded p
+        p = p.to(v.dtype).float()
+    safe = torch.where(l == 0, torch.ones_like(l), l)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, _heads(v, heads).float())
+    out = out / safe.permute(0, 2, 1)[..., None]
+    stored = out.to(q.dtype)
+    bad = ~(l > GUARD_MIN_L)
+    if mode != BOUNDED_2:
+        # K7 tests the stored output, K2 the float32 one
+        checked = stored.float() if mode == NOSHIFT_E else out
+        bad = bad | ~torch.isfinite(l) | ~torch.isfinite(checked).all(-1).permute(0, 2, 1)
+    return stored.reshape(b, sq, c), bool(bad.any())
+
+
+def _guarded(q, k, v, heads, out, bad):
+    """The Pallas callers' ``lax.cond``: the running-max result where the
+    guard tripped.  Returns ``(out, flag)``, flag an int32 ``(1,)``."""
+    flag = torch.tensor([int(bad)], dtype=torch.int32, device=q.device)
+    return (plain_tok_flash(q, k, v, heads) if bad else out), flag
+
+
+def plain_tok_flash_noshift(q, k, v, heads):
+    """K7: q times 1/sqrt(d) in its dtype, ``p = exp(logit)`` unshifted and
+    rounded to v's dtype, ``l`` the sum of the rounded p, out ``acc / l``.
+    Returns ``(out, flag)``."""
+    d = q.shape[-1] // heads
+    qs = scaled_in_dtype(q, 1.0 / math.sqrt(d))
+    return _guarded(q, k, v, heads, *_fixed_shift(qs, k, v, heads, NOSHIFT_E))
+
+
+def plain_tok_flash_bounded(q, k, v, heads):
+    """K8: q times log2(e)/sqrt(d) in its dtype, ``p = exp2(logit -
+    bound)`` with the Cauchy-Schwarz bound, ``l`` the sum of the unrounded
+    p.  Returns ``(out, flag)``."""
+    d = q.shape[-1] // heads
+    qs = scaled_in_dtype(q, math.log2(math.e) / math.sqrt(d))
+    bound = cauchy_schwarz_bound(qs, k, heads)
+    return _guarded(q, k, v, heads, *_fixed_shift(qs, k, v, heads, BOUNDED_2, bound))
+
+
+def plain_tok_flash_unshifted(q, k, v, heads):
+    """K2's TPU form: q times log2(e)/sqrt(d) in its dtype, ``p =
+    exp2(logit)`` unshifted, ``l`` the sum of the unrounded p.  Returns
+    ``(out, flag)``."""
+    d = q.shape[-1] // heads
+    qs = scaled_in_dtype(q, math.log2(math.e) / math.sqrt(d))
+    return _guarded(q, k, v, heads, *_fixed_shift(qs, k, v, heads, UNSHIFTED_2))
+
+
 # ------------------------------------------------------------------ checks
 def check_operands(name, tensors, head_dim):
     """Raise unless the operands are what the CUDA kernel takes."""
@@ -151,15 +253,81 @@ def tok_flash(q, k, v, heads: int):
     q: (B, Sq, C), k/v: (B, Skv, C), C = heads * d.  Returns (B, Sq, C)."""
     if q.device.type == "cpu":
         return plain_tok_flash(q, k, v, heads)
+    _check_tok("tok_flash", q, k, v, heads)
     b, sq, c = q.shape
     skv = k.shape[1]
-    if c % heads or k.shape != (b, skv, c) or v.shape != k.shape:
-        raise ValueError(f"tok_flash: shapes {q.shape} {k.shape} {v.shape}")
-    check_operands("tok_flash", (q, k, v), c // heads)
     out = torch.empty_like(q)
     _launch("tok_flash", q, k, v, None, None, None, out, b, sq, skv, 0,
             heads, c // heads, 1, 0)
     tok_flash.launches += 1
+    return out
+
+
+def _check_tok(name, q, k, v, heads):
+    b, sq, c = q.shape
+    skv = k.shape[1]
+    if c % heads or k.shape != (b, skv, c) or v.shape != k.shape:
+        raise ValueError(f"{name}: shapes {q.shape} {k.shape} {v.shape}")
+    check_operands(name, (q, k, v), c // heads)
+
+
+def _tok_mode(name, mode, q, k, v, heads, qs, bound, q_scale):
+    """One fixed-shift launch and its predicated running-max fallback;
+    returns ``(out, flag)``."""
+    b, sq, c = q.shape
+    d = c // heads
+    out = torch.empty_like(q)
+    flag = torch.zeros(1, dtype=torch.int32, device=q.device)
+    err = build.library().aniportrait_tok_flash_fwd(
+        build.DTYPE_CODES[q.dtype], mode, _ptr(q), _ptr(qs), _ptr(k), _ptr(v),
+        _ptr(bound), _ptr(out), _ptr(flag), b, sq, k.shape[1], heads, d,
+        float(d) ** -0.5, q_scale, build.stream_handle(),
+    )
+    build.check(err, name)
+    return out, flag
+
+
+def tok_flash_noshift(q, k, v, heads: int):
+    """K7: :func:`tok_flash`'s function through the no-shift base-e
+    softmax, guarded.  q/k/v: (B, S, C); returns (B, Sq, C)."""
+    if q.device.type == "cpu":
+        out, tok_flash_noshift.last_guard = plain_tok_flash_noshift(q, k, v, heads)
+        return out
+    _check_tok("tok_flash_noshift", q, k, v, heads)
+    qs = scaled_in_dtype(q, 1.0 / math.sqrt(q.shape[-1] // heads))
+    out, tok_flash_noshift.last_guard = _tok_mode(
+        "tok_flash_noshift", NOSHIFT_E, q, k, v, heads, qs, None, 1.0)
+    tok_flash_noshift.launches += 1
+    return out
+
+
+def tok_flash_bounded(q, k, v, heads: int):
+    """K8: :func:`tok_flash`'s function through the base-2 softmax shifted
+    by the Cauchy-Schwarz bound (torch reductions here), guarded."""
+    if q.device.type == "cpu":
+        out, tok_flash_bounded.last_guard = plain_tok_flash_bounded(q, k, v, heads)
+        return out
+    _check_tok("tok_flash_bounded", q, k, v, heads)
+    qs = scaled_in_dtype(q, math.log2(math.e) / math.sqrt(q.shape[-1] // heads))
+    bound = cauchy_schwarz_bound(qs, k, heads)
+    out, tok_flash_bounded.last_guard = _tok_mode(
+        "tok_flash_bounded", BOUNDED_2, q, k, v, heads, qs, bound, 1.0)
+    tok_flash_bounded.launches += 1
+    return out
+
+
+def tok_flash_unshifted(q, k, v, heads: int):
+    """K2u, K2's TPU form: :func:`tok_flash`'s function through the
+    unshifted base-2 softmax (q scaled in the kernel), guarded."""
+    if q.device.type == "cpu":
+        out, tok_flash_unshifted.last_guard = plain_tok_flash_unshifted(q, k, v, heads)
+        return out
+    _check_tok("tok_flash_unshifted", q, k, v, heads)
+    scale2 = math.log2(math.e) / math.sqrt(q.shape[-1] // heads)
+    q_scale = torch.tensor(scale2, dtype=q.dtype).item()  # rounded as in JAX
+    out, tok_flash_unshifted.last_guard = _tok_mode(
+        "tok_flash_unshifted", UNSHIFTED_2, q, k, v, heads, q, None, q_scale)
+    tok_flash_unshifted.launches += 1
     return out
 
 
@@ -250,3 +418,6 @@ tok_flash_banked.launches = 0
 flash_attention.launches = 0
 flash_attention_fwd_lse.launches = 0
 flash_attention_bwd.launches = 0
+for _fn in (tok_flash_noshift, tok_flash_bounded, tok_flash_unshifted):
+    _fn.launches = 0
+    _fn.last_guard = None

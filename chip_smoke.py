@@ -5,15 +5,17 @@
     python3 chip_smoke.py --phase kernels    # only the kernel phase
     python3 chip_smoke.py --phase long-clip  # kernels, references, long clips
     python3 chip_smoke.py --phase train      # only the two training phases
+    python3 chip_smoke.py --phase tok-ab     # guards, token-kernel A/B, K9 path
 
 Phases, each of which fails the run (nonzero exit) on any error:
 
 1. kernels: build the CUDA kernels from ``aniportrait_tpu_torch/csrc`` and
-   hold each of K1-K6 against its plain PyTorch version at the main paths'
-   widths, in bf16 and float32, with the tolerances below; time the kernel,
-   the plain version and the one PyTorch call that computes the same
-   function (``F.scaled_dot_product_attention``, forward and backward for
-   K5b), and compute the card's bound for the same work.
+   hold each of K1-K9 (and K2u, K2's TPU form) against its plain PyTorch
+   version at the main paths' widths, in bf16 and float32, with the
+   tolerances below; time the kernel, the plain version and the one PyTorch
+   call that computes the same function (``F.scaled_dot_product_attention``,
+   forward and backward for K5b), and compute the card's bound for the same
+   work.  The guards of K7, K8 and K2u must hold on these random inputs.
 2. reference: the micro model through the pipeline on the GPU (kernels) and
    on the CPU (plain versions) from the same weights and latents, float32,
    2 steps: at 256 px, 8 frames, exact windowed sampler; and at 112x80 px
@@ -41,6 +43,16 @@ Phases, each of which fails the run (nonzero exit) on any error:
    trained weights move, frozen ones (ReferenceNet up_blocks.3, VAE, CLIP)
    stay bit for bit, the PoseGuider's running statistics change, and K2,
    K5a and K5b must have launched during the trainer's steps.
+7. token-kernel A/B (``tok-ab``): the guards of K7, K8 and K2u on the
+   crafted inputs of tests/test_pallas_attention.py (set exactly where the
+   JAX guard falls back, and then the output is the running max's); the A/B
+   entry ``aniportrait_tpu_torch.scripts.bench_tok_kernel.run`` at its four
+   full shapes, where every guard must hold and every variant meet
+   ``runmax`` within the bf16 tolerance, and K7, K8, K2u must launch; then
+   the head-folded short-sequence path (``small_seq_attention_folded``, K9)
+   forward and backward at the 512x512 request's top-level motion-module
+   width, against the library forward, and its float32 gradients on the
+   card against the CPU's at a cut batch.
 
 The last line of standard output is the device summary JSON; the line before
 it lists the kernels.  Without a CUDA device the script exits nonzero.
@@ -94,6 +106,14 @@ SOURCES = {
             "aniportrait_tpu/ops/pallas_attention.py:468"),
     "K6": ("ctg_packed", "aniportrait_tpu_torch/csrc/small_seq_attn.cu",
            "aniportrait_tpu/ops/pallas_attention.py:1918"),
+    "K2u": ("tok_flash_unshifted", "aniportrait_tpu_torch/csrc/flash_attn.cu",
+            "aniportrait_tpu/ops/pallas_attention.py:1043"),
+    "K7": ("tok_flash_noshift", "aniportrait_tpu_torch/csrc/flash_attn.cu",
+           "aniportrait_tpu/ops/pallas_attention.py:863"),
+    "K8": ("tok_flash_bounded", "aniportrait_tpu_torch/csrc/flash_attn.cu",
+           "aniportrait_tpu/ops/pallas_attention.py:1251"),
+    "K9": ("ssa_packed", "aniportrait_tpu_torch/csrc/small_seq_attn.cu",
+           "aniportrait_tpu/ops/pallas_attention.py:1847"),
 }
 
 
@@ -190,6 +210,7 @@ def kernel_cases(dtype):
     main paths' widths: K1-K4 at the pose2vid shapes, K5a/K5b at stage-1
     training's (train_bs 2, 512 px)."""
     import torch
+    import torch.nn.functional as F
 
     from aniportrait_tpu_torch.ops import kernels as K
     from aniportrait_tpu_torch.ops.kernels import flash, small_seq, temporal
@@ -198,9 +219,9 @@ def kernel_cases(dtype):
     rand = lambda *s: torch.randn(*s, generator=g, device="cuda", dtype=dtype)
     cases = []
 
-    def case(kid, label, run, plain, library, flops, nbytes):
+    def case(kid, label, run, plain, library, flops, nbytes, guarded=None):
         cases.append(dict(kid=kid, label=label, run=run, plain=plain, library=library,
-                          flops=flops, nbytes=nbytes))
+                          flops=flops, nbytes=nbytes, guarded=guarded))
 
     # K1: cond CFG half at 64x64: 16 frame rows over self + one bank row
     b, s, c, h, rep = 16, 4096, 320, 8, 16
@@ -230,6 +251,45 @@ def kernel_cases(dtype):
                  q[lo:hi], k[lo:hi], v[lo:hi], h), b, 4),
              lambda heads=heads: _sdpa(*heads),
              4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q))
+
+    # K7, K8, K2u (the token-kernel A/B's fixed-shift variants): the uncond
+    # half at 64x64 (d=40) and the res/2 self + bank shape (d=80); K8's bytes
+    # count its bound
+    variants = (("K7", K.tok_flash_noshift, flash.plain_tok_flash_noshift),
+                ("K8", K.tok_flash_bounded, flash.plain_tok_flash_bounded),
+                ("K2u", K.tok_flash_unshifted, flash.plain_tok_flash_unshifted))
+    for b, sq, skv, c in ((16, 4096, 4096, 320), (16, 1024, 3072, 640)):
+        q, k, v = rand(b, sq, c), rand(b, skv, c), rand(b, skv, c)
+        d = c // h
+        heads = [t.view(b, t.shape[1], h, d) for t in (q, k, v)]
+        for kid, fn, plain in variants:
+            extra = b * sq * h * 4 if kid == "K8" else 0
+            case(kid, f"B={b} Sq={sq} Skv={skv} C={c} H={h}",
+                 lambda q=q, k=k, v=v, fn=fn: fn(q, k, v, h),
+                 _chunked(lambda lo, hi, q=q, k=k, v=v, plain=plain: plain(
+                     q[lo:hi], k[lo:hi], v[lo:hi], h)[0], b, 4),
+                 lambda heads=heads: _sdpa(*heads),
+                 4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q) + extra, guarded=fn)
+
+    # K9: the head-folded pack of the 512x512 request's top-level motion
+    # module (2 CFG rows x 4096 positions x 8 heads = 65536 sequences of 16
+    # frames, 8 to a 128-row tile); and 24-row groups with a dead tail
+    # (rows 120-127 of each tile).  Library: SDPA on the sequences, or on
+    # the tiles with the block-diagonal mask; q arrives scaled (scale 1).
+    # FLOPs count the logits the mask keeps.
+    for n, t, dp, seq, nv in ((8192, 128, 40, 16, 128), (3277, 128, 80, 24, 120)):
+        x = [rand(n, t, dp) for _ in range(3)]
+        mask = small_seq.ssa_mask(t, seq, nv, "cuda")
+        if t == nv and t % seq == 0:
+            lib_x, lib_mask = [y.view(n * t // seq, 1, seq, dp) for y in x], None
+        else:
+            lib_x, lib_mask = [y.view(n, 1, t, dp) for y in x], mask
+        case("K9", f"n={n} T={t} dp={dp} seq={seq} n_valid_rows={nv}",
+             lambda x=x, seq=seq, nv=nv: K.ssa_packed(*x, seq, nv),
+             lambda x=x, seq=seq, nv=nv: small_seq.plain_ssa_packed(*x, seq, nv),
+             lambda lib_x=lib_x, m=lib_mask: F.scaled_dot_product_attention(
+                 *lib_x, attn_mask=m, scale=1.0),
+             4.0 * n * int(mask.sum()) * dp, _nbytes(*x, x[0]))
 
     # K3: every motion module width, f = 16, CFG rows b = 2
     for s, c in ((4096, 320), (1024, 640), (256, 1280)):
@@ -361,6 +421,11 @@ def kernel_phase(results: dict) -> None:
             ref = c["plain"]()
             ok, max_abs, rel_l2, bound = _check(got, ref)
             del got, ref
+            guard = ""
+            if c["guarded"] is not None:  # the fast path's output must stand
+                held = c["guarded"].last_guard.item() == 0
+                ok &= held
+                guard = f" guard {'held' if held else 'TRIPPED'}"
             ms = _time_ms(c["run"], 5)
             plain_ms = _time_ms(c["plain"], 2)
             lib_ms = _time_ms(c["library"], 5)
@@ -369,7 +434,7 @@ def kernel_phase(results: dict) -> None:
                 f"rel_l2={rel_l2:.3e} (tol {bound:.3g}/{TOLERANCE[name][1]:g}) "
                 f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms library {lib_ms:.3f} ms "
                 f"bound {bound_ms:.4f} ms ({bound_by}; {c['flops'] / 1e9:.1f} GFLOP, "
-                f"{c['nbytes'] / 1e6:.1f} MB) {'ok' if ok else 'FAIL'}")
+                f"{c['nbytes'] / 1e6:.1f} MB){guard} {'ok' if ok else 'FAIL'}")
             if not ok:
                 failed.append(f"{kid} {name} {label}")
             if kid not in results and name == "bfloat16":
@@ -826,9 +891,145 @@ def training_phase(results: dict) -> None:
         results.setdefault(kid, {})["launches"] = counts[kid]
 
 
+# ------------------------------------------------------- token-kernel A/B
+def _crafted(kind: str):
+    """The crafted inputs of tests/test_pallas_attention.py, float32, one
+    head of 8 over 16 tokens: ``orthogonal`` (huge-norm q along e0, k along
+    e1, every true logit 0) or ``overflow`` (one logit of 1e3 / sqrt(8))."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(6)
+    q = np.zeros((1, 16, 8), np.float32)
+    if kind == "orthogonal":
+        q[..., 0] = 1e4
+        k = np.zeros((1, 16, 8), np.float32)
+        k[..., 1] = 1e4
+    else:
+        q[..., 0] = 1e3
+        k = (0.01 * rs.randn(1, 16, 8)).astype(np.float32)
+        k[:, 3, 0] = 1.0
+    v = rs.randn(1, 16, 8).astype(np.float32)
+    return [torch.from_numpy(x).cuda() for x in (q, k, v)]
+
+
+def guard_checks() -> None:
+    """Each fixed-shift variant's guard on the crafted inputs: the flag is
+    set exactly where the JAX guard falls back (tests/test_pallas_attention.py
+    :288-346, :376-411), the output is then the running max's, bit for bit,
+    and where all logits are equal it is the uniform mean of v."""
+    import torch
+
+    from aniportrait_tpu_torch.ops import kernels as K
+
+    cases = (("K7", K.tok_flash_noshift, "overflow", True),
+             ("K7", K.tok_flash_noshift, "orthogonal", False),
+             ("K8", K.tok_flash_bounded, "orthogonal", True),
+             ("K2u", K.tok_flash_unshifted, "overflow", True))
+    failed = []
+    for kid, fn, kind, tripped in cases:
+        q, k, v = _crafted(kind)
+        got = fn(q, k, v, 1)
+        flag = fn.last_guard.item()
+        ok = flag == int(tripped)
+        if tripped:
+            ok &= torch.equal(got, K.tok_flash(q, k, v, 1))
+        if kind == "orthogonal":
+            uniform = v.mean(1, keepdim=True).expand_as(got)
+            ok &= torch.allclose(got, uniform, atol=2e-5, rtol=1e-4)
+        log(f"[tok-ab] guard {kid} on {kind} inputs: flag {flag} (JAX falls back: "
+            f"{tripped}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{kid} {kind}")
+    if failed:
+        raise SystemExit(f"guard checks failed: {failed}")
+
+
+def tok_ab_phase(results: dict) -> None:
+    """The token-kernel A/B entry at its four full shapes, bf16."""
+    from aniportrait_tpu_torch.ops import kernels as K
+    from aniportrait_tpu_torch.scripts import bench_tok_kernel as ab
+
+    guard_checks()
+    K.reset_launch_counts()
+    rows = ab.run("cuda", ab.SHAPES, 5, log=log)
+    counts = K.launch_counts()
+    log(f"[tok-ab] {gpu_line()}: kernel launches {counts}")
+    atol = TOLERANCE["bfloat16"][0]
+    bad = [f"{row['name']} {v}" for row in rows for v in ab.VARIANTS
+           if row["guard_held"][v] is False
+           or not row["max_abs_diff"][v] <= atol * row["runmax_max_abs"]]
+    if bad or len(rows) != len(ab.SHAPES):
+        raise SystemExit(f"tok-ab: guard tripped or variant off runmax: {bad}")
+    never = [k for k in ("K7", "K8", "K2u") if counts[k] == 0]
+    if never:
+        raise SystemExit(f"tok-ab: kernels {never} never launched")
+    for kid in ("K7", "K8", "K2u"):
+        results.setdefault(kid, {})["launches"] = counts[kid]
+
+
+def folded_small_seq_phase(results: dict) -> None:
+    """The head-folded short-sequence path (``small_seq_attention_folded``,
+    K9 through ``SsaPacked``) at the 512x512 request's top-level motion
+    module: (B, S, H, D) = (8192, 16, 8, 40), 65536 sequences, bf16, forward
+    and backward; then float32 gradients on the card against the CPU's at 64
+    rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from aniportrait_tpu_torch.ops import kernels as K
+    from aniportrait_tpu_torch.ops.attention import small_seq_attention_folded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(1)
+
+    def rand(*s, dtype=torch.bfloat16):
+        return torch.randn(*s, generator=g, device="cuda", dtype=dtype)
+
+    b, s, h, d = 8192, 16, 8, 40
+    x = [rand(b, s, h, d).requires_grad_() for _ in range(3)]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = small_seq_attention_folded(*x)
+    out.backward(rand(b, s, h, d))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    # reference: the library's attention in float32 on the same bf16 inputs;
+    # the bf16 output is held to the bf16 tolerance of its largest value
+    ref = F.scaled_dot_product_attention(
+        *(t.detach().float().transpose(1, 2) for t in x)).transpose(1, 2)
+    diff = out.detach().float() - ref
+    max_abs, rel = diff.abs().max().item(), (diff.norm() / ref.norm()).item()
+    tol = TOLERANCE["bfloat16"][0] * ref.abs().max().item()
+    ok = max_abs <= tol and rel <= TOLERANCE["bfloat16"][1]
+    ok &= all(bool(torch.isfinite(t.grad).all()) for t in x)
+    del ref, diff
+
+    xs = [rand(64, s, h, d, dtype=torch.float32) for _ in range(4)]
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in xs[:3]]
+        small_seq_attention_folded(*leaves).backward(xs[3].to(dev))
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    scale = max(t.abs().max().item() for t in grads["cpu"])
+    err = max((a - c).abs().max().item() for a, c in zip(grads["cuda"], grads["cpu"]))
+    grad_tol = TOLERANCE["float32"][0] * scale
+    log(f"[tok-ab] head-folded short sequences (K9) B={b} S={s} H={h} D={d} bf16, forward "
+        f"+ backward {dt:.3f} s: vs the library's float32 forward max_abs_err={max_abs:.3e} "
+        f"rel_l2={rel:.3e} (tol {tol:.3g}/{TOLERANCE['bfloat16'][1]:g}); float32 "
+        f"gradients card vs CPU (64 rows) max err {err:.3e} (tol {grad_tol:.3g}); kernel "
+        f"launches {counts}")
+    if not ok or not err <= grad_tol:
+        raise SystemExit("head-folded short-sequence path disagrees")
+    if counts["K9"] == 0:
+        raise SystemExit("head-folded short-sequence path: K9 never launched")
+    results.setdefault("K9", {})["launches"] = counts["K9"]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=("all", "kernels", "long-clip", "train"),
+    parser.add_argument("--phase", choices=("all", "kernels", "long-clip", "train", "tok-ab"),
                         default="all")
     args = parser.parse_args()
 
@@ -855,6 +1056,11 @@ def main() -> int:
     if args.phase in ("all", "train"):
         train_reference_phase()
         training_phase(results)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.phase in ("all", "tok-ab"):
+        tok_ab_phase(results)
+        folded_small_seq_phase(results)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name=f"{kid} {SOURCES[kid][0]}", route="cuda", source=SOURCES[kid][1],

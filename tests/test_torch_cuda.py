@@ -79,6 +79,117 @@ def test_ctg_packed_matches_plain(rand, dtype, seq, heads, d):
     assert K.ctg_packed.launches == before + 1
 
 
+TOK_VARIANTS = {  # wrapper, plain version (returns (out, flag))
+    "noshift": (K.tok_flash_noshift, flash.plain_tok_flash_noshift),
+    "bounded": (K.tok_flash_bounded, flash.plain_tok_flash_bounded),
+    "unshifted": (K.tok_flash_unshifted, flash.plain_tok_flash_unshifted),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [40, 24])
+@pytest.mark.parametrize("variant", sorted(TOK_VARIANTS))
+def test_tok_variants_match_plain(rand, dtype, d, variant):
+    """K7, K8 and K2's TPU form on 70 queries over 90 keys (ragged tiles):
+    the guard holds on random inputs and the output meets the plain
+    version's and the running max's."""
+    fn, plain = TOK_VARIANTS[variant]
+    h = 2
+    q, k, v = rand(dtype, 3, 70, h * d), rand(dtype, 3, 90, h * d), rand(dtype, 3, 90, h * d)
+    before = fn.launches
+    got = fn(q, k, v, h)
+    assert fn.launches == before + 1
+    assert fn.last_guard.is_cuda and fn.last_guard.item() == 0
+    ref, flag = plain(q, k, v, h)
+    assert flag.item() == 0
+    torch.testing.assert_close(got, ref, **TOL[dtype])
+    torch.testing.assert_close(got, flash.plain_tok_flash(q, k, v, h), **TOL[dtype])
+
+
+def _crafted(kind):
+    """The crafted inputs of tests/test_pallas_attention.py, float32."""
+    rs = np.random.RandomState(6)
+    q = np.zeros((1, 16, 8), np.float32)
+    if kind == "orthogonal":  # every true logit 0, huge norms
+        q[..., 0] = 1e4
+        k = np.zeros((1, 16, 8), np.float32)
+        k[..., 1] = 1e4
+    else:  # one logit of 1e3 / sqrt(8): exp overflows
+        q[..., 0] = 1e3
+        k = (0.01 * rs.randn(1, 16, 8)).astype(np.float32)
+        k[:, 3, 0] = 1.0
+    v = rs.randn(1, 16, 8).astype(np.float32)
+    return [torch.from_numpy(x).cuda() for x in (q, k, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,kind,tripped", [
+    ("noshift", "orthogonal", False), ("noshift", "overflow", True),
+    ("bounded", "orthogonal", True), ("unshifted", "overflow", True),
+])
+def test_tok_variant_guards_take_the_jax_branch(rand, variant, kind, tripped):
+    """The flag is set exactly where the JAX guard falls back, and then the
+    predicated running-max launch has replaced the output."""
+    fn, plain = TOK_VARIANTS[variant]
+    q, k, v = _crafted(kind)
+    got = fn(q, k, v, 1)
+    assert fn.last_guard.item() == int(tripped)
+    ref, flag = plain(q, k, v, 1)
+    assert flag.item() == int(tripped)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    if tripped:
+        torch.testing.assert_close(got, K.tok_flash(q, k, v, 1), atol=0, rtol=0)
+    if kind == "orthogonal":
+        torch.testing.assert_close(got, v.mean(1, keepdim=True).expand_as(got),
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,t,dp,seq,nv", [
+    (37, 128, 40, 16, 128),  # the 512x512 motion-module pack
+    (11, 128, 80, 24, 120),  # a dead tail; the last group straddles n_valid
+    (5, 100, 24, 32, 90),    # T % seq != 0, head dim 24
+    (6, 16, 256, 24, 0),     # a group longer than the tile, all rows dead
+])
+def test_ssa_packed_matches_plain(rand, dtype, n, t, dp, seq, nv):
+    x = [rand(dtype, n, t, dp) for _ in range(3)]
+    before = K.ssa_packed.launches
+    torch.testing.assert_close(K.ssa_packed(*x, seq, nv),
+                               small_seq.plain_ssa_packed(*x, seq, nv), **TOL[dtype])
+    assert K.ssa_packed.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssa_autograd_and_folded_entry_match_cpu(rand, dtype):
+    """SsaPacked's forward runs K9 and its gradient meets the CPU's; the
+    head-folded entry meets the library's attention."""
+    import torch.nn.functional as F
+
+    from aniportrait_tpu_torch.ops.attention import small_seq_attention_folded
+    from aniportrait_tpu_torch.ops.kernels.autograd import SsaPacked
+
+    x = [rand(dtype, 9, 120, 40) for _ in range(3)]
+    g = rand(dtype, 9, 120, 40)
+    grads = {}
+    for device in ("cuda", "cpu"):
+        leaves = [t.detach().to(device).requires_grad_() for t in x]
+        before = K.ssa_packed.launches
+        SsaPacked.apply(*leaves, 24, 96).backward(g.to(device))
+        assert K.ssa_packed.launches == before + (device == "cuda")
+        grads[device] = [t.grad for t in leaves]
+    for a, c in zip(grads["cuda"], grads["cpu"]):
+        scale = c.float().abs().max().item()
+        torch.testing.assert_close(a.cpu().float(), c.float(), rtol=TOL[dtype]["rtol"],
+                                   atol=TOL[dtype]["atol"] * scale)
+    q, k, v = (rand(dtype, 70, 16, 4, 40) for _ in range(3))
+    lib = F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in (q, k, v)))
+    torch.testing.assert_close(small_seq_attention_folded(q, k, v), lib.transpose(1, 2),
+                               **TOL[dtype])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("wrap", [False, True])
 def test_windowed_motion_module_matches_cpu(rand, wrap):
@@ -180,3 +291,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(rand):
         K.flash_attention_bwd(q4, q4, q4, out, lse.double(), q4)
     with pytest.raises(ValueError):
         K.flash_attention_bwd(q4, q4, q4, out, lse, q4, torch.ones(2, device="cuda"), 0)
+    with pytest.raises(ValueError):
+        K.tok_flash_bounded(q, q[:, :, :40].contiguous(), q, 2)
+    t = rand(torch.float32, 2, 256, 40)
+    with pytest.raises(ValueError):  # K9: T > 128
+        K.ssa_packed(t, t, t, 16)
+    t = t[:, :128].contiguous()
+    with pytest.raises(ValueError):  # K9: seq > 32
+        K.ssa_packed(t, t, t, 48)
+    with pytest.raises(ValueError):  # K9: n_valid_rows > T
+        K.ssa_packed(t, t, t, 16, 129)
