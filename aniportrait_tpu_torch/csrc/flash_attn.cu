@@ -1,5 +1,8 @@
-// Flash-attention forward for Hopper (sm_90a): one templated kernel behind
-// four entry points of ops/kernels/flash.py.
+// Flash-attention forward, float32 form: one templated kernel on the FMA
+// units behind four entry points of ops/kernels/flash.py.  The C entry points
+// at the end of this file take both dtypes and choose the form by dtype
+// alone: float32 runs this kernel, bf16 the tensor-core kernel of
+// flash_attn_sm90.cu, which computes the same function in every mode.
 //
 // Replaces these Pallas TPU kernels of aniportrait_tpu/ops/pallas_attention.py:
 //   K1  _tok_flash_banked_impl / _tokf_banked_kernel: token-layout (B, S, C)
@@ -32,7 +35,8 @@
 //   K2  flash_attention_tokens_unshifted / _tokf_fwd_kernel in its TPU form
 //       (UNSHIFTED_2): q multiplied by log2(e)/sqrt(d) in its dtype at the
 //       load, p = exp2(logit); l sums the unrounded p.
-// Only the logits stage and the epilogue differ from RUNMAX: no max, no
+// (Every rounding to an operand's dtype is the identity in float32.)  Only
+// the logits stage and the epilogue differ from RUNMAX: no max, no
 // rescale of the accumulator, output acc / (l == 0 ? 1 : l).  Each of these
 // computes its Pallas caller's guard (a row-head is bad if l is not > 1e-30;
 // for K7 and K2 also if l or one of its outputs is not finite) and ORs it,
@@ -44,10 +48,10 @@
 // What bounds it on an H100: at the main path's shapes (S = 4096, d = 40,
 // 8 heads, 16 rows; 4096 x 8192 logits per head for K1) the work is
 // 4*S*Skv*d FLOPs per head against S*d + 2*Skv*d loaded elements, far above
-// the card's ~295 FLOP/byte ridge, so the kernel is compute bound.  This first
-// version computes on the float32 FMA units (67 TFLOP/s peak), not the tensor
-// cores (989 TFLOP/s bf16); moving QK^T and PV onto mma.sync/wgmma is the
-// next step and the reason it is written as two tile products.
+// the card's ~295 FLOP/byte ridge, so the kernel is compute bound.  This form
+// computes on the float32 FMA units (67 TFLOP/s peak): the float32 reference
+// runs (micro pipeline, micro train step against the CPU) need float32
+// products, which TF32 tensor cores would round.
 //
 // Design against that bound and the card's differences from the TPU:
 //   * one block = 64 query rows of one (batch row, head); the TPU grid's
@@ -62,9 +66,10 @@
 //   * head dims 40, 80, 88, 160 are not powers of two: the head tile is
 //     padded in shared memory to DP = round_up(d, 16) and zero filled, loads
 //     are masked, and DP is a template parameter (16 ... 256).
-//   * bf16 or float32 inputs, float32 accumulation and softmax; q is
-//     pre-multiplied by scale * log2(e) so the softmax runs on exp2.
-#include "common.cuh"
+//   * float32 inputs (bf16 goes to flash_attn_sm90.cu), float32 accumulation
+//     and softmax; q is pre-multiplied by scale * log2(e) so the softmax runs
+//     on exp2.
+#include "flash_fwd.cuh"
 
 namespace aniportrait {
 namespace {
@@ -76,37 +81,12 @@ constexpr int LDQ = BQ + 4;   // q tile stored transposed: [DP][LDQ]
 constexpr int LDK = BKV + 4;  // k tile stored transposed: [DP][LDK]
 constexpr int LDP = BQ + 4;   // probabilities stored transposed: [BKV][LDP]
 
-// softmax modes (the codes of aniportrait_tok_flash_fwd's `mode`)
-constexpr int RUNMAX = 0;       // online running max: K1, K2, K4, K5a
-constexpr int NOSHIFT_E = 1;    // K7
-constexpr int BOUNDED_2 = 2;    // K8
-constexpr int UNSHIFTED_2 = 3;  // K2 in its TPU form
-
-struct FlashArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* kb;       // bank keys (B / rep, sbank, C) or nullptr
-  const void* vb;
-  const int32_t* drop;  // (B,) drop_tail flags or nullptr
-  void* o;
-  float* lse;           // (B, heads, sq) float32, written when LSE is set
-  int batch, sq, skv, sbank, heads, d, rep, kv_split;
-  // RUNMAX: q's float32 multiplier scale * log2(e); UNSHIFTED_2: the
-  // multiplier applied in q's dtype; NOSHIFT_E, BOUNDED_2: unused (q
-  // arrives scaled)
-  float scale_log2;
-  const float* bound;   // BOUNDED_2: (B, sq, heads) float32 base-2 bound
-  int32_t* guard;       // modes other than RUNMAX: the flag they OR into
-  const int32_t* pred;  // RUNMAX: run only if *pred != 0 (nullptr: always)
-};
-
 template <int DP>
 constexpr size_t flash_smem_bytes() {
   return sizeof(float) * (DP * LDQ + DP * LDK + BKV * DP + BKV * LDP);
 }
 
-template <typename T, int DP, int MODE, bool LSE>
+template <int DP, int MODE, bool LSE>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FlashArgs a) {
   static_assert(MODE == RUNMAX || !LSE, "the LSE is a RUNMAX output");
   constexpr int DPT = DP / 16;
@@ -126,16 +106,15 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FlashArgs a) {
   const int d = a.d;
   const int ld = a.heads * d;
 
-  const T* q = static_cast<const T*>(a.q) + (size_t)b * a.sq * ld + h * d;
-  const float q_mult = MODE == UNSHIFTED_2 ? round_as<T>(a.scale_log2) : a.scale_log2;
+  const float* q = static_cast<const float*>(a.q) + (size_t)b * a.sq * ld + h * d;
+  const float q_mult = a.scale_log2;
   for (int i = tid; i < BQ * DP; i += THREADS) {
     const int r = i / DP;
     const int c = i - r * DP;
     float x = 0.f;
     if (q0 + r < a.sq && c < d) {
-      x = to_f32(q[(size_t)(q0 + r) * ld + c]);
-      if (MODE == RUNMAX) x *= q_mult;
-      if (MODE == UNSHIFTED_2) x = round_as<T>(x * q_mult);
+      x = q[(size_t)(q0 + r) * ld + c];
+      if (MODE == RUNMAX || MODE == UNSHIFTED_2) x *= q_mult;
     }
     sQ[c * LDQ + r] = x;
   }
@@ -153,18 +132,18 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FlashArgs a) {
   }
 
   for (int seg = 0; seg < 2; ++seg) {
-    const T* kp;
-    const T* vp;
+    const float* kp;
+    const float* vp;
     int len;
     if (seg == 0) {
-      kp = static_cast<const T*>(a.k) + (size_t)b * a.skv * ld + h * d;
-      vp = static_cast<const T*>(a.v) + (size_t)b * a.skv * ld + h * d;
+      kp = static_cast<const float*>(a.k) + (size_t)b * a.skv * ld + h * d;
+      vp = static_cast<const float*>(a.v) + (size_t)b * a.skv * ld + h * d;
       len = (a.drop != nullptr && a.drop[b] != 0) ? a.kv_split : a.skv;
     } else {
       if (a.kb == nullptr) break;
       const int bb = b / a.rep;
-      kp = static_cast<const T*>(a.kb) + (size_t)bb * a.sbank * ld + h * d;
-      vp = static_cast<const T*>(a.vb) + (size_t)bb * a.sbank * ld + h * d;
+      kp = static_cast<const float*>(a.kb) + (size_t)bb * a.sbank * ld + h * d;
+      vp = static_cast<const float*>(a.vb) + (size_t)bb * a.sbank * ld + h * d;
       len = a.sbank;
     }
     for (int k0 = 0; k0 < len; k0 += BKV) {
@@ -175,8 +154,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FlashArgs a) {
         float kx = 0.f, vx = 0.f;
         if (k0 + r < len && c < d) {
           const size_t off = (size_t)(k0 + r) * ld + c;
-          kx = to_f32(kp[off]);
-          vx = to_f32(vp[off]);
+          kx = kp[off];
+          vx = vp[off];
         }
         sK[c * LDK + r] = kx;
         sV[r * DP + c] = vx;
@@ -240,15 +219,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FlashArgs a) {
           float rs = 0.f;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            float p;
-            if (MODE == NOSHIFT_E) {
-              p = round_as<T>(expf(s[i][j]));  // l sums the rounded p
-              rs += p;
-            } else {
-              p = exp2f(MODE == BOUNDED_2 ? s[i][j] - bnd[i] : s[i][j]);
-              rs += p;  // l sums the unrounded p
-              p = round_as<T>(p);
-            }
+            const float x = MODE == BOUNDED_2 ? s[i][j] - bnd[i] : s[i][j];
+            const float p = MODE == NOSHIFT_E ? expf(x) : exp2f(x);
+            rs += p;
             s[i][j] = p;
           }
 #pragma unroll
@@ -277,7 +250,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FlashArgs a) {
     }
   }
 
-  T* o = static_cast<T*>(a.o) + (size_t)b * a.sq * ld + h * d;
+  float* o = static_cast<float*>(a.o) + (size_t)b * a.sq * ld + h * d;
   bool bad = false;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -293,10 +266,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FlashArgs a) {
         const int col = tx * DPT + c;
         if (col >= d) continue;
         const float x = acc[i][c] / safe;
-        // K7 tests the stored output, K2 the float32 one before the store
-        if (MODE == NOSHIFT_E) bad |= !isfinite(round_as<T>(x));
-        if (MODE == UNSHIFTED_2) bad |= !isfinite(x);
-        store_f32(&o[(size_t)r * ld + col], x);
+        // K7 and K2u test the output (stored as computed in float32)
+        if (MODE == NOSHIFT_E || MODE == UNSHIFTED_2) bad |= !isfinite(x);
+        o[(size_t)r * ld + col] = x;
       }
       continue;
     }
@@ -309,7 +281,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FlashArgs a) {
 #pragma unroll
     for (int c = 0; c < DPT; ++c) {
       const int col = tx * DPT + c;
-      if (col < d) store_f32(&o[(size_t)r * ld + col], acc[i][c] * inv);
+      if (col < d) o[(size_t)r * ld + col] = acc[i][c] * inv;
     }
   }
   if (MODE != RUNMAX) {
@@ -317,47 +289,45 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FlashArgs a) {
   }
 }
 
-template <typename T, int DP, int MODE, bool LSE>
+template <int DP, int MODE, bool LSE>
 cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
   constexpr size_t smem = flash_smem_bytes<DP>();
-  cudaError_t err = set_smem(flash_fwd_kernel<T, DP, MODE, LSE>, smem);
+  cudaError_t err = set_smem(flash_fwd_kernel<DP, MODE, LSE>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.sq + BQ - 1) / BQ, a.heads, a.batch);
-  flash_fwd_kernel<T, DP, MODE, LSE><<<grid, THREADS, smem, stream>>>(a);
+  flash_fwd_kernel<DP, MODE, LSE><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t launch_lse(const FlashArgs& a, cudaStream_t stream) {
-  return a.lse != nullptr ? launch<T, DP, RUNMAX, true>(a, stream)
-                          : launch<T, DP, RUNMAX, false>(a, stream);
+  return a.lse != nullptr ? launch<DP, RUNMAX, true>(a, stream)
+                          : launch<DP, RUNMAX, false>(a, stream);
 }
 
-template <typename T>
 cudaError_t dispatch(const FlashArgs& a, cudaStream_t stream) {
-#define ANIPORTRAIT_CASE(DP) return launch_lse<T, DP>(a, stream);
+#define ANIPORTRAIT_CASE(DP) return launch_lse<DP>(a, stream);
   ANIPORTRAIT_HEAD_DIM_SWITCH(a.d, ANIPORTRAIT_CASE)
 #undef ANIPORTRAIT_CASE
 }
 
 // The fixed-shift mode into `fast.o`, then the guard's fallback: RUNMAX into
 // the same output, predicated on the flag the first launch sets.
-template <typename T, int DP>
+template <int DP>
 cudaError_t launch_tok(int mode, const FlashArgs& fast, const FlashArgs& fallback,
                        cudaStream_t stream) {
   cudaError_t err;
-  if (mode == NOSHIFT_E) err = launch<T, DP, NOSHIFT_E, false>(fast, stream);
-  else if (mode == BOUNDED_2) err = launch<T, DP, BOUNDED_2, false>(fast, stream);
-  else if (mode == UNSHIFTED_2) err = launch<T, DP, UNSHIFTED_2, false>(fast, stream);
+  if (mode == NOSHIFT_E) err = launch<DP, NOSHIFT_E, false>(fast, stream);
+  else if (mode == BOUNDED_2) err = launch<DP, BOUNDED_2, false>(fast, stream);
+  else if (mode == UNSHIFTED_2) err = launch<DP, UNSHIFTED_2, false>(fast, stream);
   else return cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
-  return launch<T, DP, RUNMAX, false>(fallback, stream);
+  return launch<DP, RUNMAX, false>(fallback, stream);
 }
 
-template <typename T>
 cudaError_t dispatch_tok(int mode, const FlashArgs& fast, const FlashArgs& fallback,
                          cudaStream_t stream) {
-#define ANIPORTRAIT_CASE(DP) return launch_tok<T, DP>(mode, fast, fallback, stream);
+#define ANIPORTRAIT_CASE(DP) return launch_tok<DP>(mode, fast, fallback, stream);
   ANIPORTRAIT_HEAD_DIM_SWITCH(fast.d, ANIPORTRAIT_CASE)
 #undef ANIPORTRAIT_CASE
 }
@@ -379,8 +349,8 @@ extern "C" int aniportrait_flash_fwd(int dtype, const void* q, const void* k, co
               static_cast<float*>(lse), batch, sq, skv, sbank, heads, d, rep, kv_split,
               scale * kLog2e, nullptr, nullptr, nullptr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16) return static_cast<int>(dispatch<__nv_bfloat16>(a, st));
-  if (dtype == kFloat32) return static_cast<int>(dispatch<float>(a, st));
+  if (dtype == kBFloat16) return static_cast<int>(flash_fwd_sm90(a, RUNMAX, st));
+  if (dtype == kFloat32) return static_cast<int>(dispatch(a, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -407,8 +377,11 @@ extern "C" int aniportrait_tok_flash_fwd(int dtype, int mode, const void* q, con
   const FlashArgs fallback{q, k, v, nullptr, nullptr, nullptr, o, nullptr, batch, sq, skv, 0,
                            heads, d, 1, 0, scale * kLog2e, nullptr, nullptr, flag};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16)
-    return static_cast<int>(dispatch_tok<__nv_bfloat16>(mode, fast, fallback, st));
-  if (dtype == kFloat32) return static_cast<int>(dispatch_tok<float>(mode, fast, fallback, st));
+  if (dtype == kBFloat16) {
+    // the fixed-shift launch, then the guard's predicated running-max one
+    cudaError_t err = flash_fwd_sm90(fast, mode, st);
+    return static_cast<int>(err != cudaSuccess ? err : flash_fwd_sm90(fallback, RUNMAX, st));
+  }
+  if (dtype == kFloat32) return static_cast<int>(dispatch_tok(mode, fast, fallback, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,6 @@
 """Wrappers of the flash-attention CUDA kernels (``csrc/flash_attn.cu``,
-``csrc/flash_bwd.cu``) and their plain PyTorch versions.
+``csrc/flash_attn_sm90.cu``, ``csrc/flash_bwd.cu``) and their plain PyTorch
+versions.
 
 Five entry points, one per Pallas kernel they replace
 (``aniportrait_tpu/ops/pallas_attention.py``); the first four share the
@@ -34,8 +35,15 @@ Each returns what :func:`tok_flash` returns and keeps the guard's int32 flag
 (0: the fast path's output stands; 1: it tripped and the running-max result
 replaced it) in ``.last_guard``.
 
+The forward has two forms, chosen by dtype alone (:func:`forward_form`):
+bf16 runs the tensor-core kernel (``csrc/flash_attn_sm90.cu``: wgmma, TMA
+loads), float32 the FMA kernel (``csrc/flash_attn.cu``).  There is no retry
+on the other form.
+
 On a CPU tensor each wrapper returns its plain version; on a CUDA tensor it
-launches the kernel or raises.  Each counts its launches in ``.launches``.
+launches the kernel or raises.  Each counts its launches in ``.launches``;
+``tensor_core_launches`` counts the forward calls that took the bf16
+tensor-core form.
 """
 
 from __future__ import annotations
@@ -47,6 +55,34 @@ import torch
 from aniportrait_tpu_torch.ops.kernels import build
 
 MAX_HEAD_DIM = 256
+tensor_core_launches = 0
+
+
+def forward_form(dtype, d: int) -> str:
+    """The form of the flash forward a CUDA call with operands of ``dtype``
+    and head dim ``d`` takes: ``"wgmma"`` (bf16: tensor cores,
+    ``csrc/flash_attn_sm90.cu``) or ``"fma"`` (float32: FMA units,
+    ``csrc/flash_attn.cu``).  The C entry points choose the same way."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} unsupported (1 ... {MAX_HEAD_DIM})")
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "fma"
+    raise TypeError(f"dtype {dtype} not supported (bf16 or float32)")
+
+
+def wgmma_block_kv(d: int) -> int:
+    """Keys per online-softmax step of the tensor-core form at head dim
+    ``d`` (``Tile<DP>::BKV`` in ``csrc/flash_attn_sm90.cu``): the tile
+    :func:`plain_attention_tiled` takes to round as that kernel does."""
+    return 128 if d <= 128 else 64
+
+
+def _count_form(q, d):
+    global tensor_core_launches
+    if forward_form(q.dtype, d) == "wgmma":
+        tensor_core_launches += 1
 
 
 # ------------------------------------------------------------ plain versions
@@ -78,6 +114,37 @@ def plain_attention_fwd_lse(q, k, v, drop_tail=None, kv_split=None):
     probs = torch.exp(logits - lse[..., None])
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
     return out, lse
+
+
+def plain_attention_tiled(q, k, v, block_kv, drop_tail=None, kv_split=None):
+    """The tensor-core forward's rounding contract, step by step: the online
+    softmax over KV tiles of ``block_kv`` keys in the order of the Pallas
+    body (``pallas_attention.py:79-97``): logits = (q k^T in float32) x
+    scale, running max and sum in float32, l summing the unrounded p, and p
+    rounded to v's dtype before the PV product.  ``(B, S, H, D)`` operands;
+    masked logits are -1e30 as in the Pallas kernel.  Nothing on the main
+    path calls it."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((b, h, sq, 1), -1e30, device=q.device)
+    l = torch.zeros((b, h, sq, 1), device=q.device)
+    acc = torch.zeros((b, h, sq, d), device=q.device)
+    for k0 in range(0, skv, block_kv):
+        logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k0 + block_kv]) * d ** -0.5
+        if drop_tail is not None:
+            cols = torch.arange(k0, k0 + logits.shape[-1], device=q.device) >= kv_split
+            mask = drop_tail.to(device=q.device, dtype=torch.bool)[:, None, None, None] & cols
+            logits = logits.masked_fill(mask, -1e30)
+        m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf[:, k0:k0 + block_kv])
+        acc = acc * alpha + pv
+        m = m_new
+    out = acc / torch.where(l == 0, torch.ones_like(l), l)
+    return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
 def plain_attention_bwd(q, k, v, out, lse, do, drop_tail=None, kv_split=None):
@@ -230,6 +297,7 @@ def _launch(name, q, k, v, kb, vb, drop, out, batch, sq, skv, sbank, heads,
         heads, d, rep, kv_split, float(d) ** -0.5, build.stream_handle(),
     )
     build.check(err, name)
+    _count_form(q, d)
 
 
 def _check_bshd(name, q, k, v, drop_tail, kv_split):
@@ -284,6 +352,7 @@ def _tok_mode(name, mode, q, k, v, heads, qs, bound, q_scale):
         float(d) ** -0.5, q_scale, build.stream_handle(),
     )
     build.check(err, name)
+    _count_form(q, d)
     return out, flag
 
 

@@ -16,6 +16,13 @@ Phases, each of which fails the run (nonzero exit) on any error:
    call that computes the same function (``F.scaled_dot_product_attention``,
    forward and backward for K5b), and compute the card's bound for the same
    work.  The guards of K7, K8 and K2u must hold on these random inputs.
+   The flash forward (K1, K2, K2u, K4, K5a, K7, K8) has two forms: every
+   bf16 case must run the tensor-core kernel (``flash_attn_sm90.cu``, its
+   launch counter moves) and every float32 case the FMA kernel; each bf16
+   case also prints its error against ``flash.plain_attention_tiled``, the
+   tensor-core kernel's rounding contract.  The build's time and the
+   tensor-core kernel's registers, spills and shared memory per
+   instantiation are printed.
 2. reference: the micro model through the pipeline on the GPU (kernels) and
    on the CPU (plain versions) from the same weights and latents, float32,
    2 steps: at 256 px, 8 frames, exact windowed sampler; and at 112x80 px
@@ -25,14 +32,15 @@ Phases, each of which fails the run (nonzero exit) on any error:
 3. pipeline: the full-size model (random bf16 weights from a seed) through
    ``Pose2VideoPipeline`` at 512x512, 16 frames, 25 DDIM steps, CFG 3.5:
    two requests with different inputs and seeds.  K1-K4 must have launched
-   during this phase.
+   during this phase, and the tensor-core flash forward.
 4. long clips: the same model at 576x768 (a 72x96 latent whose 9x12 level
    K3 cannot pack), 28 frames, 25 steps, CFG 3.5, each request through
    ``run_cases`` on its own pipeline over one set of modules: A, the exact
    windowed path (context 16, overlap 4, window batch 3); B, window fusion
    over the same table with the encoder cache at 2 and latent
-   interpolation x2 (55 frames out).  K1-K4 and K6 must launch in A, and
-   K6 in B as often as the model's structure and the cache schedule say.
+   interpolation x2 (55 frames out).  K1-K4, K6 and the tensor-core flash
+   forward must launch in A, and K6 in B as often as the model's structure
+   and the cache schedule say.
 5. training reference: one stage-1 step of the micro model at 256 px,
    float32, on the GPU (kernels) and on the CPU (plain versions) from the
    same weights, batch and random draws; the loss and every trainable
@@ -42,7 +50,8 @@ Phases, each of which fails the run (nonzero exit) on any error:
    batches for six steps, the last one profiled.  Losses must be finite,
    trained weights move, frozen ones (ReferenceNet up_blocks.3, VAE, CLIP)
    stay bit for bit, the PoseGuider's running statistics change, and K2,
-   K5a and K5b must have launched during the trainer's steps.
+   K5a, K5b and the tensor-core flash forward must have launched during the
+   trainer's steps.
 7. token-kernel A/B (``tok-ab``): the guards of K7, K8 and K2u on the
    crafted inputs of tests/test_pallas_attention.py (set exactly where the
    JAX guard falls back, and then the output is the running max's); the A/B
@@ -92,29 +101,32 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
 SOURCES = {
-    "K1": ("tok_flash_banked", "aniportrait_tpu_torch/csrc/flash_attn.cu",
+    "K1": ("tok_flash_banked", "aniportrait_tpu_torch/csrc/flash_attn_sm90.cu",
            "aniportrait_tpu/ops/pallas_attention.py:1493"),
-    "K2": ("tok_flash", "aniportrait_tpu_torch/csrc/flash_attn.cu",
+    "K2": ("tok_flash", "aniportrait_tpu_torch/csrc/flash_attn_sm90.cu",
            "aniportrait_tpu/ops/pallas_attention.py:1043"),
     "K3": ("nat_temporal", "aniportrait_tpu_torch/csrc/temporal_attn.cu",
            "aniportrait_tpu/ops/pallas_attention.py:2018"),
-    "K4": ("flash_attention", "aniportrait_tpu_torch/csrc/flash_attn.cu",
+    "K4": ("flash_attention", "aniportrait_tpu_torch/csrc/flash_attn_sm90.cu",
            "aniportrait_tpu/ops/pallas_attention.py:294"),
-    "K5a": ("flash_attention_fwd_lse", "aniportrait_tpu_torch/csrc/flash_attn.cu",
+    "K5a": ("flash_attention_fwd_lse", "aniportrait_tpu_torch/csrc/flash_attn_sm90.cu",
             "aniportrait_tpu/ops/pallas_attention.py:370"),
     "K5b": ("flash_attention_bwd", "aniportrait_tpu_torch/csrc/flash_bwd.cu",
             "aniportrait_tpu/ops/pallas_attention.py:468"),
     "K6": ("ctg_packed", "aniportrait_tpu_torch/csrc/small_seq_attn.cu",
            "aniportrait_tpu/ops/pallas_attention.py:1918"),
-    "K2u": ("tok_flash_unshifted", "aniportrait_tpu_torch/csrc/flash_attn.cu",
+    "K2u": ("tok_flash_unshifted", "aniportrait_tpu_torch/csrc/flash_attn_sm90.cu",
             "aniportrait_tpu/ops/pallas_attention.py:1043"),
-    "K7": ("tok_flash_noshift", "aniportrait_tpu_torch/csrc/flash_attn.cu",
+    "K7": ("tok_flash_noshift", "aniportrait_tpu_torch/csrc/flash_attn_sm90.cu",
            "aniportrait_tpu/ops/pallas_attention.py:863"),
-    "K8": ("tok_flash_bounded", "aniportrait_tpu_torch/csrc/flash_attn.cu",
+    "K8": ("tok_flash_bounded", "aniportrait_tpu_torch/csrc/flash_attn_sm90.cu",
            "aniportrait_tpu/ops/pallas_attention.py:1251"),
     "K9": ("ssa_packed", "aniportrait_tpu_torch/csrc/small_seq_attn.cu",
            "aniportrait_tpu/ops/pallas_attention.py:1847"),
 }
+# the kernels of the shared flash forward: bf16 runs its tensor-core form
+# (the source above), float32 its FMA form (csrc/flash_attn.cu)
+FLASH_FWD = ("K1", "K2", "K2u", "K4", "K5a", "K7", "K8")
 
 
 def log(msg: str) -> None:
@@ -127,6 +139,18 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return res.stdout.strip().splitlines()[0]
+
+
+def tensor_core_check(phase: str) -> int:
+    """The tensor-core flash forward's launches since the last
+    ``reset_launch_counts``; the phase fails if it never ran."""
+    from aniportrait_tpu_torch.ops.kernels import flash
+
+    n = flash.tensor_core_launches
+    log(f"[{phase}] tensor-core (wgmma bf16) flash forward launches: {n}")
+    if n == 0:
+        raise SystemExit(f"{phase}: the tensor-core flash forward never launched")
+    return n
 
 
 # ------------------------------------------------------------------ kernels
@@ -219,9 +243,16 @@ def kernel_cases(dtype):
     rand = lambda *s: torch.randn(*s, generator=g, device="cuda", dtype=dtype)
     cases = []
 
-    def case(kid, label, run, plain, library, flops, nbytes, guarded=None):
+    def case(kid, label, run, plain, library, flops, nbytes, guarded=None, tiled=None):
         cases.append(dict(kid=kid, label=label, run=run, plain=plain, library=library,
-                          flops=flops, nbytes=nbytes, guarded=guarded))
+                          flops=flops, nbytes=nbytes, guarded=guarded, tiled=tiled))
+
+    def tiled_ref(q, k, v, drop=None, split=None, chunk=4):
+        """The tensor-core kernel's rounding contract on (B, S, H, D)
+        operands with its KV tile, chunked over batch rows."""
+        bkv = flash.wgmma_block_kv(q.shape[-1])
+        return _chunked(lambda lo, hi: flash.plain_attention_tiled(
+            q[lo:hi], k[lo:hi], v[lo:hi], bkv, rows(drop, lo, hi), split), q.shape[0], chunk)
 
     # K1: cond CFG half at 64x64: 16 frame rows over self + one bank row
     b, s, c, h, rep = 16, 4096, 320, 8, 16
@@ -238,7 +269,8 @@ def kernel_cases(dtype):
              x[3][lo // rep:lo // rep + 1], x[4][lo // rep:lo // rep + 1],
              h, hi - lo), b, 4),
          lambda qh=qh, kc=kc, vc=vc: _sdpa(qh, kc, vc),
-         4.0 * b * h * s * 2 * s * (c // h), _nbytes(q, k, v, kb, vb, q))
+         4.0 * b * h * s * 2 * s * (c // h), _nbytes(q, k, v, kb, vb, q),
+         tiled=tiled_ref(qh, kc, vc))
 
     # K2: uncond half at 64x64 (d=40) and the c=640 concat call (d=80)
     for b, sq, skv, c in ((16, 4096, 4096, 320), (16, 1024, 2048, 640)):
@@ -250,7 +282,7 @@ def kernel_cases(dtype):
              _chunked(lambda lo, hi, q=q, k=k, v=v: flash.plain_tok_flash(
                  q[lo:hi], k[lo:hi], v[lo:hi], h), b, 4),
              lambda heads=heads: _sdpa(*heads),
-             4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q))
+             4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q), tiled=tiled_ref(*heads))
 
     # K7, K8, K2u (the token-kernel A/B's fixed-shift variants): the uncond
     # half at 64x64 (d=40) and the res/2 self + bank shape (d=80); K8's bytes
@@ -269,7 +301,8 @@ def kernel_cases(dtype):
                  _chunked(lambda lo, hi, q=q, k=k, v=v, plain=plain: plain(
                      q[lo:hi], k[lo:hi], v[lo:hi], h)[0], b, 4),
                  lambda heads=heads: _sdpa(*heads),
-                 4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q) + extra, guarded=fn)
+                 4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q) + extra, guarded=fn,
+                 tiled=tiled_ref(*heads))
 
     # K9: the head-folded pack of the 512x512 request's top-level motion
     # module (2 CFG rows x 4096 positions x 8 heads = 65536 sequences of 16
@@ -336,7 +369,8 @@ def kernel_cases(dtype):
                           q[lo:hi], k[lo:hi], v[lo:hi],
                           None if drop is None else drop[lo:hi], split), b, 4),
              lambda q=q, k=k, v=v, drop=drop, split=split: _sdpa(q, k, v, drop, split),
-             _flash_flops(b, hh, s, skv, d, drop, split), _nbytes(q, k, v, q))
+             _flash_flops(b, hh, s, skv, d, drop, split), _nbytes(q, k, v, q),
+             tiled=tiled_ref(q, k, v, drop, split))
 
     # K5a / K5b: stage-1 training at 512 px, train_bs 2.  The denoising
     # UNet's self + bank attention (masked: CFG-dropped rows skip the bank)
@@ -365,7 +399,7 @@ def kernel_cases(dtype):
                  K.flash_attention_fwd_lse(q, k, v, drop, split),
              plain_fwd,
              lambda q=q, k=k, v=v, drop=drop, split=split: _sdpa(q, k, v, drop, split),
-             fwd_flops, _nbytes(q, k, v, q, lse))
+             fwd_flops, _nbytes(q, k, v, q, lse), tiled=tiled_ref(q, k, v, drop, split, 1))
         case("K5b", label,
              lambda q=q, k=k, v=v, out=out, lse=lse, do=do, drop=drop, split=split:
                  K.flash_attention_bwd(q, k, v, out, lse, do, drop, split),
@@ -399,27 +433,66 @@ def _check(got, ref):
     return ok, worst_abs, worst_rel, worst_bound
 
 
+def _sm90_report(log_text: str) -> list:
+    """ptxas's lines for each instantiation of the tensor-core flash forward
+    (``flash_fwd_sm90_kernel<DP, MODE>``), with the dynamic shared memory its
+    launch asks for (``Tile<DP>::SMEM`` in csrc/flash_attn_sm90.cu)."""
+    import re
+
+    from aniportrait_tpu_torch.ops.kernels.flash import wgmma_block_kv
+
+    out, current = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"flash_fwd_sm90_kernelILi(\d+)ELi(\d+)E", line)
+        if "Compiling entry function" in line:
+            current = m and (int(m.group(1)), int(m.group(2)))
+        elif current and ("registers" in line or "spill" in line):
+            dp, mode = current
+            bkv = wgmma_block_kv(dp)
+            smem = 128 + 128 * dp * 2 + 4 * bkv * dp * 2
+            out.append(f"DP={dp} mode={mode} ({smem} B dynamic shared memory): "
+                       f"{line.split(':', 1)[-1].strip()}")
+    return out
+
+
 def kernel_phase(results: dict) -> None:
     import torch
 
-    from aniportrait_tpu_torch.ops.kernels import build
+    from aniportrait_tpu_torch.ops.kernels import build, flash
 
     t0 = time.perf_counter()
     build.library()
     log(f"[kernels] built {build.BUILD_DIR} in {time.perf_counter() - t0:.1f} s "
         f"from {', '.join(p.name for p in build.sources())}")
-    for line in (build.BUILD_DIR / "build.log").read_text().splitlines():
+    log_text = (build.BUILD_DIR / "build.log").read_text()
+    for line in log_text.splitlines():
+        if "sm90" in line:
+            continue
         if "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
             log(f"[ptxas] {line.strip()}")
+    for line in _sm90_report(log_text):
+        log(f"[ptxas sm90] {line}")
     failed = []
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         for c in kernel_cases(dtype):
             kid, label = c["kid"], c["label"]
+            before = flash.tensor_core_launches
             got = c["run"]()
             torch.cuda.synchronize()
+            form, ok_form = "", True
+            if kid in FLASH_FWD:
+                wgmma = flash.tensor_core_launches > before
+                ok_form = wgmma == (dtype == torch.bfloat16)
+                form = " [wgmma bf16]" if wgmma else " [FMA float32]"
+            tiled = ""
+            if c["tiled"] is not None and dtype == torch.bfloat16:
+                out = got[0] if isinstance(got, tuple) else got
+                _, t_abs, t_rel, _ = _check(out, c["tiled"]().reshape(out.shape))
+                tiled = f" vs tiled contract max_abs_err={t_abs:.3e} rel_l2={t_rel:.3e}"
             ref = c["plain"]()
             ok, max_abs, rel_l2, bound = _check(got, ref)
+            ok &= ok_form
             del got, ref
             guard = ""
             if c["guarded"] is not None:  # the fast path's output must stand
@@ -430,8 +503,8 @@ def kernel_phase(results: dict) -> None:
             plain_ms = _time_ms(c["plain"], 2)
             lib_ms = _time_ms(c["library"], 5)
             bound_ms, bound_by = _bound(c["flops"], c["nbytes"], name)
-            log(f"[kernels] {kid} {name} {label}: max_abs_err={max_abs:.3e} "
-                f"rel_l2={rel_l2:.3e} (tol {bound:.3g}/{TOLERANCE[name][1]:g}) "
+            log(f"[kernels] {kid}{form} {name} {label}: max_abs_err={max_abs:.3e} "
+                f"rel_l2={rel_l2:.3e} (tol {bound:.3g}/{TOLERANCE[name][1]:g}){tiled} "
                 f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms library {lib_ms:.3f} ms "
                 f"bound {bound_ms:.4f} ms ({bound_by}; {c['flops'] / 1e9:.1f} GFLOP, "
                 f"{c['nbytes'] / 1e6:.1f} MB){guard} {'ok' if ok else 'FAIL'}")
@@ -564,6 +637,7 @@ def pipeline_phase(results: dict) -> None:
     never = [k for k in serving if counts[k] == 0]
     if never:
         raise SystemExit(f"pipeline: kernels {never} never launched on the main path")
+    tensor_core_check("pipeline")
     for kid in serving:
         results.setdefault(kid, {})["launches"] = counts[kid]
 
@@ -661,6 +735,8 @@ def long_clip_phase(results: dict) -> None:
                              f"the model and schedule say {k6_expected}")
         need = ("K1", "K2", "K3", "K4", "K6") if name == "A" else ("K6",)
         never |= {k for k in need if counts[k] == 0}
+        if name == "A":
+            tensor_core_check("long-clip")
         results.setdefault("K6", {}).setdefault("launches", 0)
         results["K6"]["launches"] += counts["K6"]
         del pipe, video
@@ -775,7 +851,8 @@ def _profile_families(prof, wall_s: float):
     """Device seconds by kernel family from a torch.profiler run, and the
     device's idle share of the wall time."""
     families = (("flash backward (K5b)", ("flash_bwd",)),
-                ("flash forward (K1, K2, K4, K5a)", ("flash_fwd",)),
+                ("flash forward, tensor cores (bf16 K1, K2, K4, K5a)", ("flash_fwd_sm90",)),
+                ("flash forward, FMA (float32)", ("flash_fwd",)),
                 ("temporal (K3)", ("temporal_kernel",)),
                 ("short sequences (K6)", ("ctg_kernel",)),
                 ("GEMM", ("gemm", "cutlass", "xmma", "cublas", "matmul")),
@@ -885,6 +962,7 @@ def training_phase(results: dict) -> None:
     never = [k for k in ("K2", "K5a", "K5b") if counts[k] == 0]
     if never:
         raise SystemExit(f"training: kernels {never} never launched on the main path")
+    tensor_core_check("training")
     log(f"[training] ok: {len(moved)}/{len(probes)} probed trained tensors moved, "
         f"{len(frozen_keys)} frozen tensors unchanged, running statistics updated")
     for kid in ("K5a", "K5b"):

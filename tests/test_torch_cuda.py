@@ -6,8 +6,10 @@ machine without it (tests/conftest.py needs JAX; skip it there):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Shapes are small and odd (sequence lengths that are not multiples of the
-64-row tiles, head dims 40 and 24 that need padding), in float32 (kernel
-error only) and bf16.
+tiles, head dims that need padding), in float32 (kernel error only) and
+bf16.  The flash forward runs in two forms, chosen by dtype: bf16 on the
+tensor cores (``csrc/flash_attn_sm90.cu``; head dims 20 and 24 take its
+scalar loader, the others TMA), float32 on the FMA units.
 """
 
 import copy
@@ -22,6 +24,10 @@ from aniportrait_tpu_torch.ops.kernels import flash, small_seq, temporal
 
 # float32: summation order only; bf16: one output rounding step
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# head dims of the flash forward's cases: SD-1.5's 40/80/160, the
+# PoseGuider's 88, powers of two up to the largest, and 20 / 24 (not
+# multiples of 16; 20 not of 8 either)
+FLASH_DIMS = [20, 24, 40, 64, 80, 88, 128, 160, 256]
 
 
 @pytest.fixture
@@ -34,23 +40,50 @@ def rand():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [40, 24])
-def test_flash_entries_match_plain(rand, dtype, d):
+@pytest.mark.parametrize("d", FLASH_DIMS)
+@pytest.mark.parametrize("sq,skv", [(70, 90), (37, 1)])
+def test_flash_entries_match_plain(rand, dtype, d, sq, skv):
+    """K2, K1 (a bank of 50 keys, rep 2) and K4 (drop_tail, kv_split 45 or
+    1); 37 queries fill less than one tile, 1 and 90 keys leave ragged
+    tiles.  bf16 runs the tensor-core form and also meets the tiled
+    rounding contract's version."""
     h = 2
-    q, k, v = rand(dtype, 3, 70, h * d), rand(dtype, 3, 90, h * d), rand(dtype, 3, 90, h * d)
+    before = flash.tensor_core_launches
+    q, k, v = rand(dtype, 3, sq, h * d), rand(dtype, 3, skv, h * d), rand(dtype, 3, skv, h * d)
     torch.testing.assert_close(K.tok_flash(q, k, v, h), flash.plain_tok_flash(q, k, v, h),
                                **TOL[dtype])
-    q2 = rand(dtype, 4, 70, h * d)
-    k2, v2 = rand(dtype, 4, 90, h * d), rand(dtype, 4, 90, h * d)
+    q2 = rand(dtype, 4, sq, h * d)
+    k2, v2 = rand(dtype, 4, skv, h * d), rand(dtype, 4, skv, h * d)
     kb, vb = rand(dtype, 2, 50, h * d), rand(dtype, 2, 50, h * d)
     torch.testing.assert_close(K.tok_flash_banked(q2, k2, v2, kb, vb, h, 2),
                                flash.plain_tok_flash_banked(q2, k2, v2, kb, vb, h, 2),
                                **TOL[dtype])
     q4, k4, v4 = (x.reshape(4, x.shape[1], h, d) for x in (q2, k2, v2))
     drop = torch.tensor([True, False, True, False], device="cuda")
-    torch.testing.assert_close(K.flash_attention(q4, k4, v4, drop, 45),
-                               flash.plain_attention_bshd(q4, k4, v4, drop, 45),
+    split = min(45, skv)
+    got = K.flash_attention(q4, k4, v4, drop, split)
+    torch.testing.assert_close(got, flash.plain_attention_bshd(q4, k4, v4, drop, split),
                                **TOL[dtype])
+    wgmma = flash.forward_form(dtype, d) == "wgmma"
+    assert flash.tensor_core_launches == before + 3 * wgmma
+    if wgmma:
+        torch.testing.assert_close(
+            got, flash.plain_attention_tiled(q4, k4, v4, flash.wgmma_block_kv(d), drop, split),
+            **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_forward_form_follows_the_dtype(rand):
+    """bf16 takes the tensor-core kernel and moves its counter; float32 the
+    FMA kernel, which does not."""
+    for d in FLASH_DIMS:
+        assert flash.forward_form(torch.bfloat16, d) == "wgmma"
+        assert flash.forward_form(torch.float32, d) == "fma"
+    for dtype, moved in ((torch.bfloat16, 1), (torch.float32, 0)):
+        q = rand(dtype, 2, 40, 80)
+        before = flash.tensor_core_launches
+        K.tok_flash(q, q, q, 2)
+        assert flash.tensor_core_launches == before + moved
 
 
 @pytest.mark.cuda
@@ -88,7 +121,7 @@ TOK_VARIANTS = {  # wrapper, plain version (returns (out, flag))
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [40, 24])
+@pytest.mark.parametrize("d", FLASH_DIMS)
 @pytest.mark.parametrize("variant", sorted(TOK_VARIANTS))
 def test_tok_variants_match_plain(rand, dtype, d, variant):
     """K7, K8 and K2's TPU form on 70 queries over 90 keys (ragged tiles):
@@ -107,8 +140,9 @@ def test_tok_variants_match_plain(rand, dtype, d, variant):
     torch.testing.assert_close(got, flash.plain_tok_flash(q, k, v, h), **TOL[dtype])
 
 
-def _crafted(kind):
-    """The crafted inputs of tests/test_pallas_attention.py, float32."""
+def _crafted(kind, dtype=torch.float32):
+    """The crafted inputs of tests/test_pallas_attention.py (exact in bf16
+    too)."""
     rs = np.random.RandomState(6)
     q = np.zeros((1, 16, 8), np.float32)
     if kind == "orthogonal":  # every true logit 0, huge norms
@@ -120,29 +154,31 @@ def _crafted(kind):
         k = (0.01 * rs.randn(1, 16, 8)).astype(np.float32)
         k[:, 3, 0] = 1.0
     v = rs.randn(1, 16, 8).astype(np.float32)
-    return [torch.from_numpy(x).cuda() for x in (q, k, v)]
+    return [torch.from_numpy(x).cuda().to(dtype) for x in (q, k, v)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("variant,kind,tripped", [
     ("noshift", "orthogonal", False), ("noshift", "overflow", True),
     ("bounded", "orthogonal", True), ("unshifted", "overflow", True),
 ])
-def test_tok_variant_guards_take_the_jax_branch(rand, variant, kind, tripped):
+def test_tok_variant_guards_take_the_jax_branch(rand, dtype, variant, kind, tripped):
     """The flag is set exactly where the JAX guard falls back, and then the
-    predicated running-max launch has replaced the output."""
+    predicated running-max launch has replaced the output (bf16: both
+    launches on the tensor-core form)."""
     fn, plain = TOK_VARIANTS[variant]
-    q, k, v = _crafted(kind)
+    q, k, v = _crafted(kind, dtype)
     got = fn(q, k, v, 1)
     assert fn.last_guard.item() == int(tripped)
     ref, flag = plain(q, k, v, 1)
     assert flag.item() == int(tripped)
-    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(got, ref, **tol)
     if tripped:
         torch.testing.assert_close(got, K.tok_flash(q, k, v, 1), atol=0, rtol=0)
     if kind == "orthogonal":
-        torch.testing.assert_close(got, v.mean(1, keepdim=True).expand_as(got),
-                                   atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(got, v.mean(1, keepdim=True).expand_as(got), **tol)
 
 
 @pytest.mark.cuda
@@ -214,10 +250,10 @@ def test_windowed_motion_module_matches_cpu(rand, wrap):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [40, 88, 160])
+@pytest.mark.parametrize("d", FLASH_DIMS)
 @pytest.mark.parametrize("drop", [False, True])
 def test_flash_fwd_lse_and_bwd_match_plain(rand, dtype, d, drop):
-    """K5a (out, lse) and K5b (dq, dk, dv); d = 160 takes the backward's
+    """K5a (out, lse) and K5b (dq, dk, dv); d >= 160 takes the backward's
     32-row tiles.  Gradients are held to the output's tolerance scaled by
     their largest magnitude."""
     b, sq, skv, h = 3, 70, 90, 2
