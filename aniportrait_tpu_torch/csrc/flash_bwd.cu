@@ -1,5 +1,8 @@
-// Flash-attention backward for Hopper (sm_90a): two kernels behind
-// flash_attention_bwd of ops/kernels/flash.py.
+// Flash-attention backward for Hopper (sm_90a), FMA form: two kernels behind
+// flash_attention_bwd of ops/kernels/flash.py for float32 operands and bf16
+// head dims above 128 (no model has them).  bf16 with d <= 128 runs the
+// tensor-core form, flash_bwd_sm90.cu; the C entry point at the end of this
+// file chooses.
 //
 // Replaces K5b of aniportrait_tpu/ops/pallas_attention.py, the two Pallas
 // kernels of _flash_bwd_kernels: _dq_kernel (dq) and _dkv_kernel (dk, dv).
@@ -17,9 +20,8 @@
 // What bounds it on an H100: five products of 2 * Sq * Skv * d FLOPs per
 // (row, head), 2.5x the forward's work; this split recomputes s and dp in
 // both kernels, 3.5x.  At the training shapes (Sq = 4096, Skv = 8192,
-// d = 40) that is far above the ~295 FLOP/byte ridge: compute bound.  Like
-// the forward, this first version runs on the float32 FMA units, not the
-// tensor cores; mma.sync/wgmma is the next step.
+// d = 40) that is far above the ~295 FLOP/byte ridge: compute bound.  This
+// form runs on the float32 FMA units.
 //
 // Design against the card's differences from the TPU:
 //   * the TPU's sequential grid axis (KV tiles for dq, q tiles for dk/dv)
@@ -33,27 +35,12 @@
 //     227 KB of shared memory a block may use.
 //   * q (dq kernel) or k (dk/dv kernel) is pre-multiplied by
 //     scale * log2(e), and lse by log2(e), so p is one exp2.
-#include "common.cuh"
+#include "flash_bwd.cuh"
 
 namespace aniportrait {
 namespace {
 
 constexpr int THREADS = 128;
-
-struct BwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const float* lse;     // (B, heads, sq)
-  const float* delta;   // (B, heads, sq)
-  const int32_t* drop;  // (B,) or nullptr
-  void* dq;
-  void* dk;
-  void* dv;
-  int batch, sq, skv, heads, d, kv_split;
-  float scale;  // natural softmax scale
-};
 
 template <int DP>
 struct Tiles {
@@ -62,10 +49,6 @@ struct Tiles {
   static constexpr int LDQ = BQ + 4;
   static constexpr int LDK = BKV + 4;
 };
-
-__device__ __forceinline__ int kv_len(const BwdArgs& a, int b) {
-  return (a.drop != nullptr && a.drop[b] != 0) ? a.kv_split : a.skv;
-}
 
 // dq: one block = BQ query rows of one (batch row, head), walking the KV tiles.
 template <typename T, int DP>
@@ -404,18 +387,23 @@ cudaError_t dispatch(const BwdArgs& a, cudaStream_t stream) {
 // q, dout, dq: (batch, sq, heads * d); k, v, dk, dv: (batch, skv, heads * d),
 // all contiguous in the operand dtype.  lse, delta: (batch, heads, sq)
 // float32.  drop: (batch,) int32 or null; flagged rows attend to keys
-// [0, kv_split).  scale: the natural softmax scale.  Returns a cudaError_t
-// code.
+// [0, kv_split).  dq_ws: for bf16 with d <= 128 (the tensor-core form), a
+// zeroed float32 (batch, heads, sq, round_up(d, 16)) workspace; else
+// unused.  scale: the natural softmax scale.  Returns a cudaError_t code.
 extern "C" int aniportrait_flash_bwd(int dtype, const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* delta,
-                                     const void* drop, void* dq, void* dk, void* dv, int batch,
-                                     int sq, int skv, int heads, int d, int kv_split, float scale,
-                                     void* stream) {
+                                     const void* drop, void* dq, void* dk, void* dv,
+                                     void* dq_ws, int batch, int sq, int skv, int heads, int d,
+                                     int kv_split, float scale, void* stream) {
   using namespace aniportrait;
   BwdArgs a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-            static_cast<const int32_t*>(drop), dq, dk, dv, batch, sq, skv, heads, d, kv_split,
-            scale};
+            static_cast<const int32_t*>(drop), dq, dk, dv, static_cast<float*>(dq_ws), batch,
+            sq, skv, heads, d, kv_split, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16 && d <= kBwdSm90MaxHeadDim) {
+    if (dq_ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(flash_bwd_sm90(a, st));
+  }
   if (dtype == kBFloat16) return static_cast<int>(dispatch<__nv_bfloat16>(a, st));
   if (dtype == kFloat32) return static_cast<int>(dispatch<float>(a, st));
   return static_cast<int>(cudaErrorInvalidValue);

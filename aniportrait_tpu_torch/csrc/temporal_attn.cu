@@ -1,5 +1,8 @@
 // Temporal (frame-axis) attention for Hopper (sm_90a) on natural-layout
-// activations: ops/kernels/temporal.py's nat_temporal.
+// activations, FMA form: ops/kernels/temporal.py's nat_temporal for float32
+// operands (and bf16 head dims that are not a multiple of 8, which no model
+// has); bf16 otherwise runs the tensor-core form, temporal_attn_sm90.cu.  The
+// C entry point at the end of this file chooses.
 //
 // Replaces the Pallas TPU kernel K3 of aniportrait_tpu/ops/pallas_attention.py:
 // nat_temporal_attention_pallas / _nat_kernel (reached through nat_packed).
@@ -24,12 +27,20 @@
 //     consecutive addresses; rows in shared memory are padded to d + 1
 //     floats (odd for the model's even head dims) so the logits pass reads
 //     without bank conflicts.
-//   * bf16 or float32 inputs, float32 logits and softmax.  The kernel takes
-//     the natural softmax scale; the wrapper converts the JAX package's
-//     base-2 scale (log2(e) / sqrt(d)).
+//   * bf16 or float32 inputs, float32 logits and softmax, the exact
+//     softmax (no bf16 rounding inside).  The kernel takes the natural
+//     softmax scale; the entry point converts the JAX package's base-2
+//     scale (log2(e) / sqrt(d)).
 #include "common.cuh"
 
 namespace aniportrait {
+
+// The bf16 tensor-core form (temporal_attn_sm90.cu); scale2 is the base-2
+// scale.  Needs d % 8 == 0 and 16-byte aligned operands.
+cudaError_t temporal_fwd_mma(const void* q, const void* k, const void* v, void* o, int batch,
+                             int frames, int s, int heads, int d, float scale2,
+                             cudaStream_t stream);
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -142,20 +153,26 @@ cudaError_t launch(const TemporalArgs& a, size_t smem, cudaStream_t stream) {
 
 // q, k, v, o: (batch * frames, s, heads * d), contiguous.  Attention runs
 // along the frame axis independently per (batch row, position, head).
-// scale: the natural softmax scale.  Returns a cudaError_t code.
+// scale: the base-2 softmax scale of the JAX nat_packed contract (q times
+// it, exp2).  bf16 with d % 8 == 0 runs the tensor-core form in that
+// contract's rounding (temporal_attn_sm90.cu); float32, and bf16 at other
+// head dims, this file's kernel on the natural scale.  Returns a
+// cudaError_t code.
 extern "C" int aniportrait_temporal_fwd(int dtype, const void* q, const void* k, const void* v,
                                         void* o, int batch, int frames, int s, int heads, int d,
                                         float scale, void* stream) {
   using namespace aniportrait;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16 && d % 8 == 0)
+    return static_cast<int>(temporal_fwd_mma(q, k, v, o, batch, frames, s, heads, d, scale, st));
   constexpr size_t kBudget = 64 * 1024;
   const size_t per_pos = temporal_floats_per_position(frames, d) * sizeof(float);
   if (per_pos > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   int sp = static_cast<int>(kBudget / per_pos);
   sp = sp < 1 ? 1 : (sp > 16 ? 16 : sp);
   if (sp > s) sp = s;
-  TemporalArgs a{q, k, v, o, batch, frames, s, heads, d, sp, scale};
+  TemporalArgs a{q, k, v, o, batch, frames, s, heads, d, sp, scale * kLn2};
   const size_t smem = per_pos * sp;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16) return static_cast<int>(launch<__nv_bfloat16>(a, smem, st));
   if (dtype == kFloat32) return static_cast<int>(launch<float>(a, smem, st));
   return static_cast<int>(cudaErrorInvalidValue);

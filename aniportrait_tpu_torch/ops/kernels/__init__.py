@@ -2,7 +2,7 @@
 ``aniportrait_tpu/ops/pallas_attention.py``), their wrappers and plain
 versions.  Sources: ``aniportrait_tpu_torch/csrc``; build: ``build.py``."""
 
-from aniportrait_tpu_torch.ops.kernels import flash
+from aniportrait_tpu_torch.ops.kernels import flash, temporal
 from aniportrait_tpu_torch.ops.kernels.flash import (
     flash_attention,
     flash_attention_bwd,
@@ -37,6 +37,8 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     flash.tensor_core_launches = 0
+    flash.tensor_core_bwd_launches = 0
+    temporal.tensor_core_launches = 0
 
 
 def launch_counts() -> dict:

@@ -43,11 +43,11 @@ _SIGNATURES = {
     # rep, kv_split, scale, stream
     "aniportrait_flash_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _I, _I, ctypes.c_float, _P],
-    # dtype, q, k, v, do, lse, delta, drop, dq, dk, dv, batch, sq, skv, heads,
-    # d, kv_split, scale, stream
-    "aniportrait_flash_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                              _I, _I, _I, _I, _I, ctypes.c_float, _P],
-    # dtype, q, k, v, o, batch, frames, s, heads, d, scale, stream
+    # dtype, q, k, v, do, lse, delta, drop, dq, dk, dv, dq_ws, batch, sq, skv,
+    # heads, d, kv_split, scale, stream
+    "aniportrait_flash_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    # dtype, q, k, v, o, batch, frames, s, heads, d, base-2 scale, stream
     "aniportrait_temporal_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  ctypes.c_float, _P],
     # dtype, q, k, v, o, n, seq, heads, d, scale, stream

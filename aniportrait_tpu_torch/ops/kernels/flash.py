@@ -1,6 +1,6 @@
 """Wrappers of the flash-attention CUDA kernels (``csrc/flash_attn.cu``,
-``csrc/flash_attn_sm90.cu``, ``csrc/flash_bwd.cu``) and their plain PyTorch
-versions.
+``csrc/flash_attn_sm90.cu``, ``csrc/flash_bwd.cu``,
+``csrc/flash_bwd_sm90.cu``) and their plain PyTorch versions.
 
 Five entry points, one per Pallas kernel they replace
 (``aniportrait_tpu/ops/pallas_attention.py``); the first four share the
@@ -37,13 +37,17 @@ replaced it) in ``.last_guard``.
 
 The forward has two forms, chosen by dtype alone (:func:`forward_form`):
 bf16 runs the tensor-core kernel (``csrc/flash_attn_sm90.cu``: wgmma, TMA
-loads), float32 the FMA kernel (``csrc/flash_attn.cu``).  There is no retry
-on the other form.
+loads), float32 the FMA kernel (``csrc/flash_attn.cu``).  The backward has
+two forms too (:func:`backward_form`): bf16 with d <= 128 runs the
+tensor-core kernel (``csrc/flash_bwd_sm90.cu``: one kernel over key tiles,
+dq summed into a float32 workspace by bulk reductions), float32 and bf16 above
+128 the FMA kernels (``csrc/flash_bwd.cu``).  There is no retry on the
+other form.
 
 On a CPU tensor each wrapper returns its plain version; on a CUDA tensor it
 launches the kernel or raises.  Each counts its launches in ``.launches``;
 ``tensor_core_launches`` counts the forward calls that took the bf16
-tensor-core form.
+tensor-core form, ``tensor_core_bwd_launches`` the backward calls.
 """
 
 from __future__ import annotations
@@ -55,7 +59,9 @@ import torch
 from aniportrait_tpu_torch.ops.kernels import build
 
 MAX_HEAD_DIM = 256
+BWD_WGMMA_MAX_HEAD_DIM = 128
 tensor_core_launches = 0
+tensor_core_bwd_launches = 0
 
 
 def forward_form(dtype, d: int) -> str:
@@ -70,6 +76,18 @@ def forward_form(dtype, d: int) -> str:
     if dtype == torch.float32:
         return "fma"
     raise TypeError(f"dtype {dtype} not supported (bf16 or float32)")
+
+
+def backward_form(dtype, d: int) -> str:
+    """The form of the flash backward a CUDA call with operands of ``dtype``
+    and head dim ``d`` takes: ``"wgmma"`` (bf16 with d <= 128: tensor
+    cores, ``csrc/flash_bwd_sm90.cu``) or ``"fma"`` (float32, and bf16 above
+    128: FMA units, ``csrc/flash_bwd.cu``).  The C entry point chooses the
+    same way."""
+    forward_form(dtype, d)  # raises on what no form takes
+    if dtype == torch.bfloat16 and d <= BWD_WGMMA_MAX_HEAD_DIM:
+        return "wgmma"
+    return "fma"
 
 
 def wgmma_block_kv(d: int) -> int:
@@ -471,14 +489,22 @@ def flash_attention_bwd(q, k, v, out, lse, do, drop_tail=None, kv_split=None):
         raise ValueError("flash_attention_bwd: lse must be contiguous float32")
     delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    wgmma = backward_form(q.dtype, d) == "wgmma"
+    # the tensor-core form sums dq's partials into a float32 workspace whose
+    # rows are the head tile DP = round_up(d, 16)
+    ws = (torch.zeros((b, h, sq, (d + 15) // 16 * 16), device=q.device,
+                      dtype=torch.float32) if wgmma else None)
     err = build.library().aniportrait_flash_bwd(
         build.DTYPE_CODES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(do),
-        _ptr(lse), _ptr(delta), _ptr(drop), _ptr(dq), _ptr(dk), _ptr(dv), b,
-        sq, k.shape[1], h, d, kv_split or 0, float(d) ** -0.5,
+        _ptr(lse), _ptr(delta), _ptr(drop), _ptr(dq), _ptr(dk), _ptr(dv),
+        _ptr(ws), b, sq, k.shape[1], h, d, kv_split or 0, float(d) ** -0.5,
         build.stream_handle(),
     )
     build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    if wgmma:
+        global tensor_core_bwd_launches
+        tensor_core_bwd_launches += 1
     return dq, dk, dv
 
 

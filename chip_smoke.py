@@ -20,9 +20,14 @@ Phases, each of which fails the run (nonzero exit) on any error:
    bf16 case must run the tensor-core kernel (``flash_attn_sm90.cu``, its
    launch counter moves) and every float32 case the FMA kernel; each bf16
    case also prints its error against ``flash.plain_attention_tiled``, the
-   tensor-core kernel's rounding contract.  The build's time and the
-   tensor-core kernel's registers, spills and shared memory per
-   instantiation are printed.
+   tensor-core kernel's rounding contract.  The flash backward (K5b) and the
+   temporal kernel (K3) have two forms too: bf16 must run the tensor-core
+   kernel (``flash_bwd_sm90.cu``, ``temporal_attn_sm90.cu``; their counters
+   move) and float32 the FMA kernel; bf16 K3 is held to the Pallas rounding
+   contract (``temporal.plain_nat_temporal_rounded``) and also prints its
+   error against the exact softmax.  The build's time and the tensor-core
+   kernels' registers, spills and shared memory per instantiation are
+   printed; the backward must not spill.
 2. reference: the micro model through the pipeline on the GPU (kernels) and
    on the CPU (plain versions) from the same weights and latents, float32,
    2 steps: at 256 px, 8 frames, exact windowed sampler; and at 112x80 px
@@ -32,7 +37,7 @@ Phases, each of which fails the run (nonzero exit) on any error:
 3. pipeline: the full-size model (random bf16 weights from a seed) through
    ``Pose2VideoPipeline`` at 512x512, 16 frames, 25 DDIM steps, CFG 3.5:
    two requests with different inputs and seeds.  K1-K4 must have launched
-   during this phase, and the tensor-core flash forward.
+   during this phase, and the tensor-core flash forward and temporal kernel.
 4. long clips: the same model at 576x768 (a 72x96 latent whose 9x12 level
    K3 cannot pack), 28 frames, 25 steps, CFG 3.5, each request through
    ``run_cases`` on its own pipeline over one set of modules: A, the exact
@@ -50,8 +55,8 @@ Phases, each of which fails the run (nonzero exit) on any error:
    batches for six steps, the last one profiled.  Losses must be finite,
    trained weights move, frozen ones (ReferenceNet up_blocks.3, VAE, CLIP)
    stay bit for bit, the PoseGuider's running statistics change, and K2,
-   K5a, K5b and the tensor-core flash forward must have launched during the
-   trainer's steps.
+   K5a, K5b and the tensor-core flash forward and backward must have
+   launched during the trainer's steps.
 7. token-kernel A/B (``tok-ab``): the guards of K7, K8 and K2u on the
    crafted inputs of tests/test_pallas_attention.py (set exactly where the
    JAX guard falls back, and then the output is the running max's); the A/B
@@ -73,6 +78,7 @@ import argparse
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -105,13 +111,13 @@ SOURCES = {
            "aniportrait_tpu/ops/pallas_attention.py:1493"),
     "K2": ("tok_flash", "aniportrait_tpu_torch/csrc/flash_attn_sm90.cu",
            "aniportrait_tpu/ops/pallas_attention.py:1043"),
-    "K3": ("nat_temporal", "aniportrait_tpu_torch/csrc/temporal_attn.cu",
+    "K3": ("nat_temporal", "aniportrait_tpu_torch/csrc/temporal_attn_sm90.cu",
            "aniportrait_tpu/ops/pallas_attention.py:2018"),
     "K4": ("flash_attention", "aniportrait_tpu_torch/csrc/flash_attn_sm90.cu",
            "aniportrait_tpu/ops/pallas_attention.py:294"),
     "K5a": ("flash_attention_fwd_lse", "aniportrait_tpu_torch/csrc/flash_attn_sm90.cu",
             "aniportrait_tpu/ops/pallas_attention.py:370"),
-    "K5b": ("flash_attention_bwd", "aniportrait_tpu_torch/csrc/flash_bwd.cu",
+    "K5b": ("flash_attention_bwd", "aniportrait_tpu_torch/csrc/flash_bwd_sm90.cu",
             "aniportrait_tpu/ops/pallas_attention.py:468"),
     "K6": ("ctg_packed", "aniportrait_tpu_torch/csrc/small_seq_attn.cu",
            "aniportrait_tpu/ops/pallas_attention.py:1918"),
@@ -125,7 +131,8 @@ SOURCES = {
            "aniportrait_tpu/ops/pallas_attention.py:1847"),
 }
 # the kernels of the shared flash forward: bf16 runs its tensor-core form
-# (the source above), float32 its FMA form (csrc/flash_attn.cu)
+# (the source above), float32 its FMA form (csrc/flash_attn.cu); so do K5b
+# (csrc/flash_bwd.cu) and K3 (csrc/temporal_attn.cu)
 FLASH_FWD = ("K1", "K2", "K2u", "K4", "K5a", "K7", "K8")
 
 
@@ -141,16 +148,22 @@ def gpu_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def tensor_core_check(phase: str) -> int:
-    """The tensor-core flash forward's launches since the last
-    ``reset_launch_counts``; the phase fails if it never ran."""
-    from aniportrait_tpu_torch.ops.kernels import flash
+def tensor_core_check(phase: str, kernels=("forward",)) -> None:
+    """The tensor-core kernels' launches since the last
+    ``reset_launch_counts`` (``forward``: the flash forward, ``backward``:
+    the flash backward, ``temporal``: K3); the phase fails if one of
+    ``kernels`` never ran."""
+    from aniportrait_tpu_torch.ops.kernels import flash, temporal
 
-    n = flash.tensor_core_launches
-    log(f"[{phase}] tensor-core (wgmma bf16) flash forward launches: {n}")
-    if n == 0:
-        raise SystemExit(f"{phase}: the tensor-core flash forward never launched")
-    return n
+    counts = {"forward": flash.tensor_core_launches,
+              "backward": flash.tensor_core_bwd_launches,
+              "temporal": temporal.tensor_core_launches}
+    log(f"[{phase}] tensor-core launches: flash forward (wgmma) {counts['forward']}, "
+        f"flash backward (wgmma) {counts['backward']}, temporal (mma.sync) "
+        f"{counts['temporal']}")
+    never = [k for k in kernels if counts[k] == 0]
+    if never:
+        raise SystemExit(f"{phase}: the tensor-core {never} kernel never launched")
 
 
 # ------------------------------------------------------------------ kernels
@@ -324,18 +337,24 @@ def kernel_cases(dtype):
                  *lib_x, attn_mask=m, scale=1.0),
              4.0 * n * int(mask.sum()) * dp, _nbytes(*x, x[0]))
 
-    # K3: every motion module width, f = 16, CFG rows b = 2
-    for s, c in ((4096, 320), (1024, 640), (256, 1280)):
+    # K3: every motion module level of the 512x512 request (64x64 ... 8x8),
+    # f = 16, CFG rows b = 2.  bf16 (the tensor-core form) is held to the
+    # Pallas rounding contract and also reports its error against the exact
+    # softmax (``tiled``); float32 to the exact softmax
+    for s, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280)):
         f, bb, d = 16, 2, c // h
         x = [rand(bb * f, s, c) for _ in range(3)]
         tok = [t.view(bb, f, s, h, d).permute(0, 2, 1, 3, 4).reshape(bb * s, f, h, d)
                for t in x]
         sc = math.log2(math.e) / math.sqrt(d)
+        exact = lambda x=x, sc=sc: temporal.plain_nat_temporal(*x, f, h, sc * temporal.LN2)
+        mma = temporal.forward_form(dtype, d) == "mma"
         case("K3", f"b={bb} f={f} s={s} C={c} H={h} d={d}",
              lambda x=x, sc=sc: K.nat_temporal(*x, f, h, sc),
-             lambda x=x, sc=sc: temporal.plain_nat_temporal(*x, f, h, sc * temporal.LN2),
+             (lambda x=x, sc=sc: temporal.plain_nat_temporal_rounded(*x, f, h, sc))
+             if mma else exact,
              lambda tok=tok: _sdpa(*tok),
-             4.0 * bb * s * h * f * f * d, _nbytes(*x, x[0]))
+             4.0 * bb * s * h * f * f * d, _nbytes(*x, x[0]), tiled=exact if mma else None)
 
     # K6: the 576x768 long clip's 9x12 motion modules, 6 rows (3 windows x
     # CFG 2) x 108 positions = 648 sequences of 16 frames, C = 1280 (8 x
@@ -434,31 +453,46 @@ def _check(got, ref):
 
 
 def _sm90_report(log_text: str) -> list:
-    """ptxas's lines for each instantiation of the tensor-core flash forward
-    (``flash_fwd_sm90_kernel<DP, MODE>``), with the dynamic shared memory its
-    launch asks for (``Tile<DP>::SMEM`` in csrc/flash_attn_sm90.cu)."""
-    import re
-
+    """ptxas's lines for each instantiation of the tensor-core kernels, with
+    the dynamic shared memory its launch asks for: the flash forward
+    (``flash_fwd_sm90_kernel<DP, MODE>``, ``Tile<DP>::SMEM`` in
+    csrc/flash_attn_sm90.cu), the flash backward
+    (``flash_bwd_sm90_kernel<DP>``, ``BwdTile<DP>::SMEM`` in
+    csrc/flash_bwd_sm90.cu) and the temporal kernel
+    (``temporal_kernel_mma<FT>``, sized per call up to ~72 KB).  Returns
+    ``(kernel, line)`` pairs."""
     from aniportrait_tpu_torch.ops.kernels.flash import wgmma_block_kv
 
+    patterns = (
+        ("forward", r"flash_fwd_sm90_kernelILi(\d+)ELi(\d+)E",
+         lambda dp, mode: (f"DP={dp} mode={mode}",
+                           128 + 128 * dp * 2 + 4 * wgmma_block_kv(dp) * dp * 2)),
+        ("backward", r"flash_bwd_sm90_kernelILi(\d+)E",
+         lambda dp: (f"DP={dp}", 128 + 2 * 64 * dp * 2 + 4 * 64 * dp * 2 + 64 * 64 * 2
+                     + 4 * 64 * 4 + 64 * dp * 4)),
+        ("temporal", r"temporal_kernel_mmaILi(\d+)E",
+         lambda ft: (f"FT={ft} (f <= {16 * ft})", None)),
+    )
     out, current = [], None
     for line in log_text.splitlines():
-        m = re.search(r"flash_fwd_sm90_kernelILi(\d+)ELi(\d+)E", line)
         if "Compiling entry function" in line:
-            current = m and (int(m.group(1)), int(m.group(2)))
+            current = None
+            for kind, pat, describe in patterns:
+                m = re.search(pat, line)
+                if m:
+                    current = (kind, *describe(*map(int, m.groups())))
         elif current and ("registers" in line or "spill" in line):
-            dp, mode = current
-            bkv = wgmma_block_kv(dp)
-            smem = 128 + 128 * dp * 2 + 4 * bkv * dp * 2
-            out.append(f"DP={dp} mode={mode} ({smem} B dynamic shared memory): "
-                       f"{line.split(':', 1)[-1].strip()}")
+            kind, label, smem = current
+            mem = f"{smem} B" if smem is not None else "per call"
+            out.append((kind, f"{kind} {label} ({mem} dynamic shared memory): "
+                              f"{line.split(':', 1)[-1].strip()}"))
     return out
 
 
 def kernel_phase(results: dict) -> None:
     import torch
 
-    from aniportrait_tpu_torch.ops.kernels import build, flash
+    from aniportrait_tpu_torch.ops.kernels import build, flash, temporal
 
     t0 = time.perf_counter()
     build.library()
@@ -466,30 +500,40 @@ def kernel_phase(results: dict) -> None:
         f"from {', '.join(p.name for p in build.sources())}")
     log_text = (build.BUILD_DIR / "build.log").read_text()
     for line in log_text.splitlines():
-        if "sm90" in line:
+        if "sm90" in line or "mma" in line:
             continue
         if "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
             log(f"[ptxas] {line.strip()}")
-    for line in _sm90_report(log_text):
-        log(f"[ptxas sm90] {line}")
     failed = []
+    for kind, line in _sm90_report(log_text):
+        log(f"[ptxas sm90] {line}")
+        if kind == "backward" and "spill" in line and " 0 bytes spill stores" not in line:
+            failed.append(f"ptxas: {line}")
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
+        def tensor_core_counts():
+            return (flash.tensor_core_launches, flash.tensor_core_bwd_launches,
+                    temporal.tensor_core_launches)
+
         for c in kernel_cases(dtype):
             kid, label = c["kid"], c["label"]
-            before = flash.tensor_core_launches
+            counters = tensor_core_counts()
             got = c["run"]()
             torch.cuda.synchronize()
             form, ok_form = "", True
-            if kid in FLASH_FWD:
-                wgmma = flash.tensor_core_launches > before
-                ok_form = wgmma == (dtype == torch.bfloat16)
-                form = " [wgmma bf16]" if wgmma else " [FMA float32]"
+            moved = [a > b for a, b in zip(tensor_core_counts(), counters)]
+            which = {"K5b": 1, "K3": 2}.get(kid, 0 if kid in FLASH_FWD else None)
+            if which is not None:
+                tc = moved[which]
+                ok_form = tc == (dtype == torch.bfloat16)
+                tc_name = "mma.sync" if kid == "K3" else "wgmma"
+                form = f" [{tc_name} bf16]" if tc else f" [FMA {name}]"
             tiled = ""
             if c["tiled"] is not None and dtype == torch.bfloat16:
                 out = got[0] if isinstance(got, tuple) else got
                 _, t_abs, t_rel, _ = _check(out, c["tiled"]().reshape(out.shape))
-                tiled = f" vs tiled contract max_abs_err={t_abs:.3e} rel_l2={t_rel:.3e}"
+                what = "exact softmax" if kid == "K3" else "tiled contract"
+                tiled = f" vs {what} max_abs_err={t_abs:.3e} rel_l2={t_rel:.3e}"
             ref = c["plain"]()
             ok, max_abs, rel_l2, bound = _check(got, ref)
             ok &= ok_form
@@ -637,42 +681,53 @@ def pipeline_phase(results: dict) -> None:
     never = [k for k in serving if counts[k] == 0]
     if never:
         raise SystemExit(f"pipeline: kernels {never} never launched on the main path")
-    tensor_core_check("pipeline")
+    tensor_core_check("pipeline", ("forward", "temporal"))
+    by_level = {}
+    for _, s, route in temporal_routes(pipe.m.denoising_unet, res // 8, res // 8, 2,
+                                       frames):
+        if route == "K3":
+            by_level[s] = by_level.get(s, 0) + steps
+    log(f"[pipeline] K3 launches per request by level (positions: launches), from the "
+        f"model's structure: {by_level}; counted over both requests: {counts['K3']}")
+    if 2 * sum(by_level.values()) != counts["K3"]:
+        raise SystemExit("pipeline: K3 launches differ from the model's reckoning")
     for kid in serving:
         results.setdefault(kid, {})["launches"] = counts[kid]
 
 
 # --------------------------------------------------------------- long clips
-def k6_calls(unet, hlat: int, wlat: int, rows: int, frames: int):
-    """(encoder, decoder) K6 launches of one denoising-UNet call on
-    ``rows`` clip rows of ``frames`` frames at a ``hlat x wlat`` latent: the
-    temporal attention calls that ``attention_route`` sends to K6, split
-    into the down + mid blocks and the up blocks."""
+def temporal_routes(unet, hlat: int, wlat: int, rows: int, frames: int):
+    """``(part, s, route)`` of every temporal attention call of one
+    denoising-UNet call on ``rows`` clip rows of ``frames`` frames at a
+    ``hlat x wlat`` latent: part is "enc" (down + mid blocks) or "dec" (up
+    blocks), s the level's positions, route what ``attention_route`` gives."""
     from aniportrait_tpu_torch.ops.attention import attention_route
 
     n = len(unet.down_blocks)
     sizes = [(hlat, wlat)]
     for _ in range(n - 1):
         sizes.append(((sizes[-1][0] + 1) // 2, (sizes[-1][1] + 1) // 2))
-
-    def count(modules, level):
-        total = 0
-        for mm in modules:
+    levels = [("enc", b, i) for i, b in enumerate(unet.down_blocks)]
+    levels += [("enc", unet.mid_block, n - 1)]
+    levels += [("dec", b, n - 1 - i) for i, b in enumerate(unet.up_blocks)]
+    out = []
+    for part, blk, level in levels:
+        s = sizes[level][0] * sizes[level][1]
+        for mm in getattr(blk, "motion_modules", []):
             for block in mm.temporal_transformer.transformer_blocks:
                 for attn in block.attention_blocks:
-                    s = sizes[level][0] * sizes[level][1]
                     d = attn.to_q.out_features // attn.heads
-                    if attention_route(rows, s, s, attn.heads, d, frames=frames) == "K6":
-                        total += 1
-        return total
+                    out.append((part, s, attention_route(rows, s, s, attn.heads, d,
+                                                         frames=frames)))
+    return out
 
-    def motion(blk):
-        return getattr(blk, "motion_modules", [])
 
-    enc = sum(count(motion(b), i) for i, b in enumerate(unet.down_blocks))
-    enc += count(motion(unet.mid_block), n - 1)
-    dec = sum(count(motion(b), n - 1 - i) for i, b in enumerate(unet.up_blocks))
-    return enc, dec
+def k6_calls(unet, hlat: int, wlat: int, rows: int, frames: int):
+    """(encoder, decoder) K6 launches of one denoising-UNet call (see
+    ``temporal_routes``)."""
+    calls = temporal_routes(unet, hlat, wlat, rows, frames)
+    return tuple(sum(1 for p, _, r in calls if p == part and r == "K6")
+                 for part in ("enc", "dec"))
 
 
 def long_clip_phase(results: dict) -> None:
@@ -736,7 +791,7 @@ def long_clip_phase(results: dict) -> None:
         need = ("K1", "K2", "K3", "K4", "K6") if name == "A" else ("K6",)
         never |= {k for k in need if counts[k] == 0}
         if name == "A":
-            tensor_core_check("long-clip")
+            tensor_core_check("long-clip", ("forward", "temporal"))
         results.setdefault("K6", {}).setdefault("launches", 0)
         results["K6"]["launches"] += counts["K6"]
         del pipe, video
@@ -850,10 +905,10 @@ def train_reference_phase() -> None:
 def _profile_families(prof, wall_s: float):
     """Device seconds by kernel family from a torch.profiler run, and the
     device's idle share of the wall time."""
-    families = (("flash backward (K5b)", ("flash_bwd",)),
+    families = (("flash backward (K5b; bf16: tensor cores)", ("flash_bwd",)),
                 ("flash forward, tensor cores (bf16 K1, K2, K4, K5a)", ("flash_fwd_sm90",)),
                 ("flash forward, FMA (float32)", ("flash_fwd",)),
-                ("temporal (K3)", ("temporal_kernel",)),
+                ("temporal (K3; bf16: tensor cores)", ("temporal_kernel",)),
                 ("short sequences (K6)", ("ctg_kernel",)),
                 ("GEMM", ("gemm", "cutlass", "xmma", "cublas", "matmul")),
                 ("convolution", ("conv", "cudnn", "implicit", "winograd", "fft")),
@@ -871,6 +926,11 @@ def _profile_families(prof, wall_s: float):
                    "elementwise, reductions, copies")
         totals[fam] = totals.get(fam, 0.0) + us / 1e6
         busy += us / 1e6
+        if "_sm90_kernel" in name or "kernel_mma" in name:
+            # the tensor-core kernels by instantiation: calls and device time
+            m = re.search(r"(\w+_kernel\w*<[^>]*>)", evt.key)
+            log(f"[profile] {m.group(1) if m else evt.key[:100]}: {evt.count} calls, "
+                f"{us / 1e3:.3f} ms")
     return totals, busy, (1.0 - busy / wall_s if busy else None)
 
 
@@ -962,7 +1022,7 @@ def training_phase(results: dict) -> None:
     never = [k for k in ("K2", "K5a", "K5b") if counts[k] == 0]
     if never:
         raise SystemExit(f"training: kernels {never} never launched on the main path")
-    tensor_core_check("training")
+    tensor_core_check("training", ("forward", "backward"))
     log(f"[training] ok: {len(moved)}/{len(probes)} probed trained tensors moved, "
         f"{len(frozen_keys)} frozen tensors unchanged, running statistics updated")
     for kid in ("K5a", "K5b"):

@@ -9,7 +9,10 @@ Shapes are small and odd (sequence lengths that are not multiples of the
 tiles, head dims that need padding), in float32 (kernel error only) and
 bf16.  The flash forward runs in two forms, chosen by dtype: bf16 on the
 tensor cores (``csrc/flash_attn_sm90.cu``; head dims 20 and 24 take its
-scalar loader, the others TMA), float32 on the FMA units.
+scalar loader, the others TMA), float32 on the FMA units.  So do the flash
+backward (bf16 up to d = 128: ``csrc/flash_bwd_sm90.cu``) and the temporal
+kernel (bf16: ``csrc/temporal_attn_sm90.cu``, held to the Pallas rounding
+contract of ``temporal.plain_nat_temporal_rounded``).
 """
 
 import copy
@@ -90,10 +93,31 @@ def test_forward_form_follows_the_dtype(rand):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("frames", [16, 5])
 def test_temporal_matches_plain(rand, dtype, frames):
+    """float32 (FMA form) against the exact softmax; bf16 (tensor-core form)
+    against the Pallas rounding contract."""
     x = [rand(dtype, 2 * frames, 37, 96) for _ in range(3)]
-    torch.testing.assert_close(K.nat_temporal(*x, frames, 2, 0.3),
-                               temporal.plain_nat_temporal(*x, frames, 2, 0.3 * temporal.LN2),
-                               **TOL[dtype])
+    if temporal.forward_form(dtype, 48) == "mma":
+        ref = temporal.plain_nat_temporal_rounded(*x, frames, 2, 0.3)
+    else:
+        ref = temporal.plain_nat_temporal(*x, frames, 2, 0.3 * temporal.LN2)
+    torch.testing.assert_close(K.nat_temporal(*x, frames, 2, 0.3), ref, **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [2, 5, 16, 24, 64])
+@pytest.mark.parametrize("c,heads", [(96, 2), (320, 8), (1280, 8)])
+def test_temporal_tensor_core_matches_rounded_contract(rand, frames, c, heads):
+    """The bf16 tensor-core form at every frame count the K3 route admits
+    from 2 to 64, head dims 48, 40 (an 8-column tail) and 160 (a head group
+    per block); 37 positions are no multiple of any block's run."""
+    x = [rand(torch.bfloat16, 2 * frames, 37, c) for _ in range(3)]
+    scale = math.log2(math.e) / math.sqrt(c // heads)
+    before = temporal.tensor_core_launches
+    got = K.nat_temporal(*x, frames, heads, scale)
+    assert temporal.tensor_core_launches == before + 1
+    torch.testing.assert_close(
+        got, temporal.plain_nat_temporal_rounded(*x, frames, heads, scale),
+        **TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
@@ -274,6 +298,41 @@ def test_flash_fwd_lse_and_bwd_match_plain(rand, dtype, d, drop):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [d for d in FLASH_DIMS if d <= 128])
+@pytest.mark.parametrize("drop", [False, True])
+def test_flash_bwd_tensor_core_matches_plain(rand, d, drop):
+    """K5b's tensor-core form (bf16, d <= 128) on ragged lengths, with and
+    without drop_tail, against plain_attention_bwd; its counter moves."""
+    b, sq, skv, h = 3, 70, 90, 2
+    q, k, v, do = (rand(torch.bfloat16, b, s, h, d) for s in (sq, skv, skv, sq))
+    mask = (torch.tensor([True, False, True], device="cuda"), 45) if drop else (None, None)
+    out, lse = flash.plain_attention_fwd_lse(q, k, v, *mask)
+    before = flash.tensor_core_bwd_launches
+    got = K.flash_attention_bwd(q, k, v, out, lse, do, *mask)
+    assert flash.tensor_core_bwd_launches == before + 1
+    ref = flash.plain_attention_bwd(q, k, v, out, lse, do, *mask)
+    for g, r in zip(got, ref):
+        scale = r.float().abs().max().item()
+        torch.testing.assert_close(g.float(), r.float(), rtol=TOL[torch.bfloat16]["rtol"],
+                                   atol=TOL[torch.bfloat16]["atol"] * scale)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_tensor_core_repeats(rand):
+    """Two runs of one call: dk and dv bit for bit (summed in registers);
+    dq within one bf16 step of its largest |value| (its float32 partials
+    meet in the L2's bulk reductions, in the order the blocks run)."""
+    b, sq, skv, h, d = 2, 300, 700, 2, 40
+    q, k, v, do = (rand(torch.bfloat16, b, s, h, d) for s in (sq, skv, skv, sq))
+    out, lse = K.flash_attention_fwd_lse(q, k, v)
+    dq1, dk1, dv1 = K.flash_attention_bwd(q, k, v, out, lse, do)
+    dq2, dk2, dv2 = K.flash_attention_bwd(q, k, v, out, lse, do)
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    step = 2.0 ** -7 * dq1.float().abs().max().item()
+    assert (dq1.float() - dq2.float()).abs().max().item() <= step
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_functions_match_plain_grads(rand, dtype):
     """TokFlash, TokFlashBanked and FlashAttention: the backward runs K5a
@@ -299,10 +358,13 @@ def test_autograd_functions_match_plain_grads(rand, dtype):
     ]
     for fn, plain in cases:
         counts = K.launch_counts()
+        tc_bwd = flash.tensor_core_bwd_launches
         a = [t.clone().requires_grad_() for t in x]
         fn(*a).backward(g)
         after = K.launch_counts()
         assert after["K5a"] > counts["K5a"] and after["K5b"] > counts["K5b"]
+        wgmma = flash.backward_form(dtype, d) == "wgmma"
+        assert (flash.tensor_core_bwd_launches > tc_bwd) == wgmma
         r = [t.float().clone().requires_grad_() for t in x]
         plain(*r).backward(g.float())
         for ga, gr in zip(a, r):
@@ -329,6 +391,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(rand):
         K.flash_attention_bwd(q4, q4, q4, out, lse, q4, torch.ones(2, device="cuda"), 0)
     with pytest.raises(ValueError):
         K.tok_flash_bounded(q, q[:, :, :40].contiguous(), q, 2)
+    x = rand(torch.bfloat16, 2 * 16 * 64 * 80 + 1)[1:].view(32, 64, 80)
+    with pytest.raises(ValueError):  # K3's tensor-core form: not on 16 bytes
+        K.nat_temporal(x, x, x, 16, 2, 0.2)
     t = rand(torch.float32, 2, 256, 40)
     with pytest.raises(ValueError):  # K9: T > 128
         K.ssa_packed(t, t, t, 16)
