@@ -3,7 +3,9 @@
 // (flash_bwd_sm90.cu): mbarrier and TMA helpers with the 10 s wait trap,
 // wgmma shared-memory descriptors and wrappers (no swizzle: core matrices of
 // 8 rows x 16 bytes), the producer warp's scalar tile loader for head dims
-// TMA cannot take, and the host's (d, heads, S, B) tensor-map encoding.
+// TMA cannot take, and the host's (d, heads, S, B) tensor-map encoding; and
+// for the short-sequence kernels (K3, K6, K9: seq_attn_mma.cuh) the
+// ldmatrix, mma.sync and cp.async wrappers.
 #pragma once
 
 #include <cuda.h>
@@ -260,6 +262,66 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---------------------------------------------- mma.sync / ldmatrix / cp.async
+// The warp-level path of the short-sequence kernels (seq_attn_mma.cuh).
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// D(16 x 8, float32) += A(16 x 16) B(16 x 8), bf16
+__device__ __forceinline__ void mma16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D(16 x 8, float32) += A(16 x 8) B(8 x 8), bf16
+__device__ __forceinline__ void mma8(float* c, const uint32_t* a, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
+}
+
+// each bf16 of the pair x scale, rounded to bf16 (exact product, one rounding)
+__device__ __forceinline__ uint32_t scale_pair(uint32_t x, float scale) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&x);
+  return pack_bf16(__low2float(v) * scale, __high2float(v) * scale);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// every cp.async of this thread landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
 // The producer warp's scalar path: rows [row0, row0 + rows) of one (batch

@@ -1,5 +1,9 @@
-// Attention over many short contiguous sequences for Hopper (sm_90a):
-// ops/kernels/small_seq.py's ctg_packed (K6) and ssa_packed (K9).
+// Attention over many short contiguous sequences for Hopper (sm_90a), FMA
+// form: ops/kernels/small_seq.py's ctg_packed (K6) and ssa_packed (K9) for
+// float32 operands (and bf16 head dims that are not a multiple of 8, which
+// no model has); bf16 otherwise runs the tensor-core form,
+// small_seq_attn_sm90.cu.  The C entry points at the end of this file
+// choose.
 //
 // Replaces the Pallas TPU kernel K6 of aniportrait_tpu/ops/pallas_attention.py:
 // ctg_seq_attention_pallas / _ctg_kernel (reached through ctg_packed).  Input
@@ -45,6 +49,14 @@
 #include "common.cuh"
 
 namespace aniportrait {
+
+// The bf16 tensor-core forms (small_seq_attn_sm90.cu): need d % 8 == 0 and
+// 16-byte aligned operands.
+cudaError_t ctg_fwd_mma(const void* q, const void* k, const void* v, void* o, int n, int seq,
+                        int heads, int d, float scale2, cudaStream_t stream);
+cudaError_t ssa_fwd_mma(const void* q, const void* k, const void* v, void* o, int n, int t,
+                        int seq, int d, int n_valid, cudaStream_t stream);
+
 namespace {
 
 constexpr int THREADS = 128;
@@ -183,8 +195,8 @@ int launch_dtype(int dtype, const CtgArgs& a, long long blocks, void* stream) {
 }  // namespace aniportrait
 
 // q, k, v, o: (n * seq, heads * d), contiguous; rows [i * seq, (i + 1) * seq)
-// are sequence i.  scale: multiplies q (base-2 softmax).  Returns a
-// cudaError_t code.
+// are sequence i.  scale: multiplies q (base-2 softmax).  bf16 with d % 8 ==
+// 0 runs the tensor-core form.  Returns a cudaError_t code.
 extern "C" int aniportrait_ctg_fwd(int dtype, const void* q, const void* k, const void* v,
                                    void* o, int n, int seq, int heads, int d, float scale,
                                    void* stream) {
@@ -192,13 +204,16 @@ extern "C" int aniportrait_ctg_fwd(int dtype, const void* q, const void* k, cons
   if (n < 1 || seq < 1 || seq > MAX_SEQ || heads < 1 || d < 1 || d > MAX_D ||
       (long long)n * heads > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kBFloat16 && d % 8 == 0)
+    return static_cast<int>(ctg_fwd_mma(q, k, v, o, n, seq, heads, d, scale,
+                                        static_cast<cudaStream_t>(stream)));
   const CtgArgs a{q, k, v, o, n, seq, heads, d, scale, 0, 0};
   return launch_dtype<false>(dtype, a, (long long)n * heads, stream);
 }
 
 // K9.  q (pre-scaled), k, v, o: (n, t, d), contiguous; each tile's rows are
 // cut into groups of seq rows, rows >= n_valid are dead.  t <= 128,
-// seq <= 32, d <= 256.  Returns a cudaError_t code.
+// seq <= 32, d <= 256.  Forms as for K6.  Returns a cudaError_t code.
 extern "C" int aniportrait_ssa_fwd(int dtype, const void* q, const void* k, const void* v,
                                    void* o, int n, int t, int seq, int d, int n_valid,
                                    void* stream) {
@@ -206,6 +221,9 @@ extern "C" int aniportrait_ssa_fwd(int dtype, const void* q, const void* k, cons
   if (n < 1 || t < 1 || t > MAX_TILE || seq < 1 || seq > MAX_SEQ || d < 1 || d > MAX_D ||
       n_valid < 0 || n_valid > t)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kBFloat16 && d % 8 == 0)
+    return static_cast<int>(ssa_fwd_mma(q, k, v, o, n, t, seq, d, n_valid,
+                                        static_cast<cudaStream_t>(stream)));
   const long long blocks = (long long)n * ((t + seq - 1) / seq);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const CtgArgs a{q, k, v, o, n, seq, 1, d, 1.f, t, n_valid};

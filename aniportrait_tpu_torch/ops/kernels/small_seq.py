@@ -1,5 +1,6 @@
 """Wrappers of the short-sequence attention CUDA kernels
-(``csrc/small_seq_attn.cu``) and their plain PyTorch versions.
+(``csrc/small_seq_attn.cu``, ``csrc/small_seq_attn_sm90.cu``) and their
+plain PyTorch versions.
 
 :func:`ctg_packed` replaces K6 of ``aniportrait_tpu/ops/pallas_attention.py``
 (``ctg_seq_attention_pallas`` through ``ctg_packed``): attention within each
@@ -20,6 +21,13 @@ its group of ``seq`` rows; rows from ``n_valid_rows`` on are dead padding
 that attends within its group, and valid rows see only valid columns.  The
 contract is ``_small_seq_kernel``'s: q arrives pre-scaled, the softmax is
 base e and each row is normalised before p is rounded to v's dtype.
+
+Each kernel has two forms (:func:`forward_form`): bf16 with a head dim that
+is a multiple of 8 runs the tensor-core kernel (``small_seq_attn_sm90.cu``:
+mma.sync on whole sequences or tiles per block), float32 the FMA kernel
+(``small_seq_attn.cu``).  Both keep the contract above, so one plain version
+serves each.  ``tensor_core_launches`` counts the calls of either wrapper
+that took the tensor-core form.
 """
 
 from __future__ import annotations
@@ -31,6 +39,38 @@ from aniportrait_tpu_torch.ops.kernels.flash import check_operands
 
 MAX_SEQ = 32
 MAX_TILE = 128  # K9's rows per tile
+tensor_core_launches = 0
+
+
+def forward_form(dtype, d: int) -> str:
+    """The form a CUDA call of either kernel with operands of ``dtype`` and
+    head dim ``d`` takes: ``"mma"`` (bf16, d % 8 == 0: tensor cores,
+    ``csrc/small_seq_attn_sm90.cu``) or ``"fma"`` (float32, and bf16 at
+    other head dims: ``csrc/small_seq_attn.cu``).  The C entry points choose
+    the same way."""
+    if dtype == torch.bfloat16:
+        return "mma" if d % 8 == 0 else "fma"
+    if dtype == torch.float32:
+        return "fma"
+    raise TypeError(f"dtype {dtype} not supported (bf16 or float32)")
+
+
+def _launch(name, entry, tensors, d, *args):
+    """Check the operands, run the C entry ``entry`` and count a tensor-core
+    launch; returns the output."""
+    check_operands(name, tensors, d)
+    mma = forward_form(tensors[0].dtype, d) == "mma"
+    if mma and any(t.data_ptr() % 16 for t in tensors):  # its 16-byte vector loads
+        raise ValueError(f"{name}: operands that do not start on 16 bytes")
+    out = torch.empty_like(tensors[0])
+    q, k, v = (t.data_ptr() for t in tensors)
+    err = getattr(build.library(), entry)(
+        build.DTYPE_CODES[out.dtype], q, k, v, out.data_ptr(), *args, build.stream_handle())
+    build.check(err, name)
+    if mma:
+        global tensor_core_launches
+        tensor_core_launches += 1
+    return out
 
 
 def plain_ctg_packed(qp, kp, vp, seq: int, heads: int, scale: float):
@@ -63,13 +103,8 @@ def ctg_packed(qp, kp, vp, seq: int, heads: int, scale: float):
             f"heads {heads}"
         )
     d = c // heads
-    check_operands("ctg_packed", (qp, kp, vp), d)
-    out = torch.empty_like(qp)
-    err = build.library().aniportrait_ctg_fwd(
-        build.DTYPE_CODES[qp.dtype], qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-        out.data_ptr(), rows // seq, seq, heads, d, scale, build.stream_handle(),
-    )
-    build.check(err, "ctg_packed")
+    out = _launch("ctg_packed", "aniportrait_ctg_fwd", (qp, kp, vp), d,
+                  rows // seq, seq, heads, d, scale)
     ctg_packed.launches += 1
     return out
 
@@ -109,13 +144,8 @@ def ssa_packed(qp, kp, vp, seq: int, n_valid_rows: int | None = None):
             f"ssa_packed: shapes {qp.shape} {kp.shape} {vp.shape} seq {seq} "
             f"n_valid_rows {n_valid_rows} (T <= {MAX_TILE}, seq <= {MAX_SEQ})"
         )
-    check_operands("ssa_packed", (qp, kp, vp), dp)
-    out = torch.empty_like(qp)
-    err = build.library().aniportrait_ssa_fwd(
-        build.DTYPE_CODES[qp.dtype], qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-        out.data_ptr(), n, t, seq, dp, nv, build.stream_handle(),
-    )
-    build.check(err, "ssa_packed")
+    out = _launch("ssa_packed", "aniportrait_ssa_fwd", (qp, kp, vp), dp,
+                  n, t, seq, dp, nv)
     ssa_packed.launches += 1
     return out
 

@@ -276,17 +276,18 @@ class Pose2VideoPipeline:
                 return x.permute(0, 1, 3, 4, 2).contiguous()
 
             def window_pose(win):
+                """The batch's CFG-doubled pose features, gathered at the step
+                that uses them and freed after it, as the original streams
+                them per window (pipeline_pose2vid_long.py:531-536)."""
                 return [cfg2(pf[0][win]) for pf in pose_fea]
 
-            pose_b = None if rotate else [window_pose(win) for win, _ in step_batches[0]]
             for i, t in enumerate(timesteps):
                 noise_pred = torch.zeros((2 if do_cfg else 1,) + x.shape[1:],
                                          dtype=torch.float32, device=dev)
                 counter = torch.zeros(video_length, dtype=torch.float32, device=dev)
                 for slot, (win, ok) in enumerate(step_batches[i if rotate else 0]):
-                    pose_w = window_pose(win) if pose_b is None else pose_b[slot]
-                    pred = predict(cfg2(x[0][win]), t, i, ctx_t, banks_t, pose_w,
-                                   cache, slot)
+                    pred = predict(cfg2(x[0][win]), t, i, ctx_t, banks_t,
+                                   window_pose(win), cache, slot)
                     parts = pred.chunk(2, dim=0) if do_cfg else (pred,)
                     for k in range(win.shape[0]):
                         if not ok[k]:

@@ -25,9 +25,11 @@ Phases, each of which fails the run (nonzero exit) on any error:
    kernel (``flash_bwd_sm90.cu``, ``temporal_attn_sm90.cu``; their counters
    move) and float32 the FMA kernel; bf16 K3 is held to the Pallas rounding
    contract (``temporal.plain_nat_temporal_rounded``) and also prints its
-   error against the exact softmax.  The build's time and the tensor-core
-   kernels' registers, spills and shared memory per instantiation are
-   printed; the backward must not spill.
+   error against the exact softmax.  So do the short-sequence kernels K6 and
+   K9: bf16 must run ``small_seq_attn_sm90.cu`` (mma.sync) and float32 the
+   FMA kernel.  The build's time and the tensor-core kernels' registers,
+   spills and shared memory per instantiation are printed; the backward and
+   the short-sequence kernels (K3, K6, K9) must not spill.
 2. reference: the micro model through the pipeline on the GPU (kernels) and
    on the CPU (plain versions) from the same weights and latents, float32,
    2 steps: at 256 px, 8 frames, exact windowed sampler; and at 112x80 px
@@ -45,7 +47,7 @@ Phases, each of which fails the run (nonzero exit) on any error:
    over the same table with the encoder cache at 2 and latent
    interpolation x2 (55 frames out).  K1-K4, K6 and the tensor-core flash
    forward must launch in A, and K6 in B as often as the model's structure
-   and the cache schedule say.
+   and the cache schedule say, every one of them on the tensor cores.
 5. training reference: one stage-1 step of the micro model at 256 px,
    float32, on the GPU (kernels) and on the CPU (plain versions) from the
    same weights, batch and random draws; the loss and every trainable
@@ -64,9 +66,9 @@ Phases, each of which fails the run (nonzero exit) on any error:
    full shapes, where every guard must hold and every variant meet
    ``runmax`` within the bf16 tolerance, and K7, K8, K2u must launch; then
    the head-folded short-sequence path (``small_seq_attention_folded``, K9)
-   forward and backward at the 512x512 request's top-level motion-module
-   width, against the library forward, and its float32 gradients on the
-   card against the CPU's at a cut batch.
+   forward (K9 on the tensor cores) and backward at the 512x512 request's
+   top-level motion-module width, against the library forward, and its
+   float32 gradients on the card against the CPU's at a cut batch.
 
 The last line of standard output is the device summary JSON; the line before
 it lists the kernels.  Without a CUDA device the script exits nonzero.
@@ -119,7 +121,7 @@ SOURCES = {
             "aniportrait_tpu/ops/pallas_attention.py:370"),
     "K5b": ("flash_attention_bwd", "aniportrait_tpu_torch/csrc/flash_bwd_sm90.cu",
             "aniportrait_tpu/ops/pallas_attention.py:468"),
-    "K6": ("ctg_packed", "aniportrait_tpu_torch/csrc/small_seq_attn.cu",
+    "K6": ("ctg_packed", "aniportrait_tpu_torch/csrc/small_seq_attn_sm90.cu",
            "aniportrait_tpu/ops/pallas_attention.py:1918"),
     "K2u": ("tok_flash_unshifted", "aniportrait_tpu_torch/csrc/flash_attn_sm90.cu",
             "aniportrait_tpu/ops/pallas_attention.py:1043"),
@@ -127,13 +129,17 @@ SOURCES = {
            "aniportrait_tpu/ops/pallas_attention.py:863"),
     "K8": ("tok_flash_bounded", "aniportrait_tpu_torch/csrc/flash_attn_sm90.cu",
            "aniportrait_tpu/ops/pallas_attention.py:1251"),
-    "K9": ("ssa_packed", "aniportrait_tpu_torch/csrc/small_seq_attn.cu",
+    "K9": ("ssa_packed", "aniportrait_tpu_torch/csrc/small_seq_attn_sm90.cu",
            "aniportrait_tpu/ops/pallas_attention.py:1847"),
 }
 # the kernels of the shared flash forward: bf16 runs its tensor-core form
 # (the source above), float32 its FMA form (csrc/flash_attn.cu); so do K5b
-# (csrc/flash_bwd.cu) and K3 (csrc/temporal_attn.cu)
+# (csrc/flash_bwd.cu), K3 (csrc/temporal_attn.cu), K6 and K9
+# (csrc/small_seq_attn.cu)
 FLASH_FWD = ("K1", "K2", "K2u", "K4", "K5a", "K7", "K8")
+# kernel id -> the tensor-core counter its bf16 form moves (tensor_core_check)
+TENSOR_CORE = {**{k: "forward" for k in FLASH_FWD}, "K5b": "backward", "K3": "temporal",
+               "K6": "small_seq", "K9": "small_seq"}
 
 
 def log(msg: str) -> None:
@@ -148,19 +154,24 @@ def gpu_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def tensor_core_counts() -> dict:
+    from aniportrait_tpu_torch.ops.kernels import flash, small_seq, temporal
+
+    return {"forward": flash.tensor_core_launches,
+            "backward": flash.tensor_core_bwd_launches,
+            "temporal": temporal.tensor_core_launches,
+            "small_seq": small_seq.tensor_core_launches}
+
+
 def tensor_core_check(phase: str, kernels=("forward",)) -> None:
     """The tensor-core kernels' launches since the last
     ``reset_launch_counts`` (``forward``: the flash forward, ``backward``:
-    the flash backward, ``temporal``: K3); the phase fails if one of
-    ``kernels`` never ran."""
-    from aniportrait_tpu_torch.ops.kernels import flash, temporal
-
-    counts = {"forward": flash.tensor_core_launches,
-              "backward": flash.tensor_core_bwd_launches,
-              "temporal": temporal.tensor_core_launches}
+    the flash backward, ``temporal``: K3, ``small_seq``: K6 and K9); the
+    phase fails if one of ``kernels`` never ran."""
+    counts = tensor_core_counts()
     log(f"[{phase}] tensor-core launches: flash forward (wgmma) {counts['forward']}, "
         f"flash backward (wgmma) {counts['backward']}, temporal (mma.sync) "
-        f"{counts['temporal']}")
+        f"{counts['temporal']}, short sequences K6/K9 (mma.sync) {counts['small_seq']}")
     never = [k for k in kernels if counts[k] == 0]
     if never:
         raise SystemExit(f"{phase}: the tensor-core {never} kernel never launched")
@@ -458,9 +469,11 @@ def _sm90_report(log_text: str) -> list:
     (``flash_fwd_sm90_kernel<DP, MODE>``, ``Tile<DP>::SMEM`` in
     csrc/flash_attn_sm90.cu), the flash backward
     (``flash_bwd_sm90_kernel<DP>``, ``BwdTile<DP>::SMEM`` in
-    csrc/flash_bwd_sm90.cu) and the temporal kernel
-    (``temporal_kernel_mma<FT>``, sized per call up to ~72 KB).  Returns
-    ``(kernel, line)`` pairs."""
+    csrc/flash_bwd_sm90.cu), the temporal kernel
+    (``temporal_kernel_mma<FT>``) and the short-sequence kernels
+    (``ctg_kernel_mma<FT>``, K6, and ``ssa_kernel_mma<FT>``, K9), these three
+    sized per call up to ~72 KB (K9 up to ~200 KB for one tile at dp = 256).
+    Returns ``(kernel, line)`` pairs."""
     from aniportrait_tpu_torch.ops.kernels.flash import wgmma_block_kv
 
     patterns = (
@@ -472,6 +485,10 @@ def _sm90_report(log_text: str) -> list:
                      + 4 * 64 * 4 + 64 * dp * 4)),
         ("temporal", r"temporal_kernel_mmaILi(\d+)E",
          lambda ft: (f"FT={ft} (f <= {16 * ft})", None)),
+        ("K6", r"ctg_kernel_mmaILi(\d+)E",
+         lambda ft: (f"FT={ft} (seq <= {16 * ft})", None)),
+        ("K9", r"ssa_kernel_mmaILi(\d+)E",
+         lambda ft: (f"FT={ft} (groups <= {16 * ft} rows)", None)),
     )
     out, current = [], None
     for line in log_text.splitlines():
@@ -492,7 +509,7 @@ def _sm90_report(log_text: str) -> list:
 def kernel_phase(results: dict) -> None:
     import torch
 
-    from aniportrait_tpu_torch.ops.kernels import build, flash, temporal
+    from aniportrait_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
     build.library()
@@ -507,26 +524,22 @@ def kernel_phase(results: dict) -> None:
     failed = []
     for kind, line in _sm90_report(log_text):
         log(f"[ptxas sm90] {line}")
-        if kind == "backward" and "spill" in line and " 0 bytes spill stores" not in line:
+        if (kind in ("backward", "temporal", "K6", "K9") and "spill" in line
+                and " 0 bytes spill stores" not in line):
             failed.append(f"ptxas: {line}")
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
-        def tensor_core_counts():
-            return (flash.tensor_core_launches, flash.tensor_core_bwd_launches,
-                    temporal.tensor_core_launches)
-
         for c in kernel_cases(dtype):
             kid, label = c["kid"], c["label"]
             counters = tensor_core_counts()
             got = c["run"]()
             torch.cuda.synchronize()
             form, ok_form = "", True
-            moved = [a > b for a, b in zip(tensor_core_counts(), counters)]
-            which = {"K5b": 1, "K3": 2}.get(kid, 0 if kid in FLASH_FWD else None)
-            if which is not None:
-                tc = moved[which]
+            if kid in TENSOR_CORE:
+                which = TENSOR_CORE[kid]
+                tc = tensor_core_counts()[which] > counters[which]
                 ok_form = tc == (dtype == torch.bfloat16)
-                tc_name = "mma.sync" if kid == "K3" else "wgmma"
+                tc_name = "wgmma" if which in ("forward", "backward") else "mma.sync"
                 form = f" [{tc_name} bf16]" if tc else f" [FMA {name}]"
             tiled = ""
             if c["tiled"] is not None and dtype == torch.bfloat16:
@@ -790,8 +803,11 @@ def long_clip_phase(results: dict) -> None:
                              f"the model and schedule say {k6_expected}")
         need = ("K1", "K2", "K3", "K4", "K6") if name == "A" else ("K6",)
         never |= {k for k in need if counts[k] == 0}
-        if name == "A":
-            tensor_core_check("long-clip", ("forward", "temporal"))
+        tensor_core_check(f"long-clip {name}", ("forward", "temporal", "small_seq")
+                          if name == "A" else ("small_seq",))
+        if tensor_core_counts()["small_seq"] != counts["K6"]:
+            raise SystemExit(f"long clip {name}: {tensor_core_counts()['small_seq']} of "
+                             f"{counts['K6']} K6 launches on the tensor cores")
         results.setdefault("K6", {}).setdefault("launches", 0)
         results["K6"]["launches"] += counts["K6"]
         del pipe, video
@@ -909,7 +925,7 @@ def _profile_families(prof, wall_s: float):
                 ("flash forward, tensor cores (bf16 K1, K2, K4, K5a)", ("flash_fwd_sm90",)),
                 ("flash forward, FMA (float32)", ("flash_fwd",)),
                 ("temporal (K3; bf16: tensor cores)", ("temporal_kernel",)),
-                ("short sequences (K6)", ("ctg_kernel",)),
+                ("short sequences (K6, K9)", ("ctg_kernel", "ssa_kernel")),
                 ("GEMM", ("gemm", "cutlass", "xmma", "cublas", "matmul")),
                 ("convolution", ("conv", "cudnn", "implicit", "winograd", "fft")),
                 ("norm", ("norm",)),
@@ -1133,6 +1149,10 @@ def folded_small_seq_phase(results: dict) -> None:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = K.launch_counts()
+    tensor_core_check("tok-ab K9 path", ("small_seq",))
+    if tensor_core_counts()["small_seq"] != counts["K9"]:
+        raise SystemExit(f"K9 path: {tensor_core_counts()['small_seq']} of {counts['K9']} "
+                         f"K9 launches on the tensor cores")
     # reference: the library's attention in float32 on the same bf16 inputs;
     # the bf16 output is held to the bf16 tolerance of its largest value
     ref = F.scaled_dot_product_attention(

@@ -10,9 +10,11 @@ tiles, head dims that need padding), in float32 (kernel error only) and
 bf16.  The flash forward runs in two forms, chosen by dtype: bf16 on the
 tensor cores (``csrc/flash_attn_sm90.cu``; head dims 20 and 24 take its
 scalar loader, the others TMA), float32 on the FMA units.  So do the flash
-backward (bf16 up to d = 128: ``csrc/flash_bwd_sm90.cu``) and the temporal
+backward (bf16 up to d = 128: ``csrc/flash_bwd_sm90.cu``), the temporal
 kernel (bf16: ``csrc/temporal_attn_sm90.cu``, held to the Pallas rounding
-contract of ``temporal.plain_nat_temporal_rounded``).
+contract of ``temporal.plain_nat_temporal_rounded``) and the short-sequence
+kernels K6 and K9 (bf16 with d % 8 == 0: ``csrc/small_seq_attn_sm90.cu``,
+held to their plain versions at the smoke's bf16 tolerance).
 """
 
 import copy
@@ -134,6 +136,88 @@ def test_ctg_packed_matches_plain(rand, dtype, seq, heads, d):
                                small_seq.plain_ctg_packed(*x, seq, heads, scale),
                                **TOL[dtype])
     assert K.ctg_packed.launches == before + 1
+
+
+def _bf16_close(got, ref):
+    """chip_smoke.py's bf16 tolerance: max abs error within 2^-6 of the
+    largest |plain output| (two bf16 steps), rel-L2 within 5e-3."""
+    diff = got.float() - ref.float()
+    assert torch.isfinite(got).all()
+    assert diff.abs().max().item() <= 2.0 ** -6 * ref.float().abs().max().item()
+    assert (diff.norm() / ref.float().norm()).item() <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [2, 5, 16, 24, 32])
+@pytest.mark.parametrize("d", [8, 40, 80, 160, 256])
+def test_ctg_tensor_core_matches_plain(rand, seq, d):
+    """K6's tensor-core form: 37 sequences of 2 heads (a block's run is up
+    to 8 sequences), head dims with an 8-column tail (8, 40), a padded
+    shared-memory row (80) and head groups per block (160, 256)."""
+    x = [rand(torch.bfloat16, 37, seq, 2 * d) for _ in range(3)]
+    scale = math.log2(math.e) / math.sqrt(d)
+    before = (K.ctg_packed.launches, small_seq.tensor_core_launches)
+    got = K.ctg_packed(*x, seq, 2, scale)
+    assert (K.ctg_packed.launches, small_seq.tensor_core_launches) == (
+        before[0] + 1, before[1] + 1)
+    _bf16_close(got, small_seq.plain_ctg_packed(*x, seq, 2, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [16, 120, 128])
+@pytest.mark.parametrize("seq", [2, 16, 24, 32])
+@pytest.mark.parametrize("dead", [0, 8])
+@pytest.mark.parametrize("dp", [40, 80])
+def test_ssa_tensor_core_matches_plain(rand, t, seq, dead, dp):
+    """K9's tensor-core form: 37 tiles (a block's run is 1 to 8 tiles),
+    ragged last groups (T % seq != 0, or one group shorter than seq), and
+    the last 8 rows of each tile dead or not."""
+    x = [rand(torch.bfloat16, 37, t, dp) for _ in range(3)]
+    before = (K.ssa_packed.launches, small_seq.tensor_core_launches)
+    got = K.ssa_packed(*x, seq, t - dead)
+    assert (K.ssa_packed.launches, small_seq.tensor_core_launches) == (
+        before[0] + 1, before[1] + 1)
+    _bf16_close(got, small_seq.plain_ssa_packed(*x, seq, t - dead))
+
+
+@pytest.mark.cuda
+def test_small_seq_tensor_core_repeats(rand):
+    """No atomics: two launches of K6 and of K9 repeat bit for bit."""
+    x = [rand(torch.bfloat16, 101, 24, 640) for _ in range(3)]
+    assert torch.equal(K.ctg_packed(*x, 24, 8, 0.16), K.ctg_packed(*x, 24, 8, 0.16))
+    y = [rand(torch.bfloat16, 33, 128, 80) for _ in range(3)]
+    assert torch.equal(K.ssa_packed(*y, 24, 120), K.ssa_packed(*y, 24, 120))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,form", [
+    (torch.bfloat16, 40, "mma"), (torch.bfloat16, 20, "fma"), (torch.float32, 40, "fma"),
+])
+def test_small_seq_form_and_counter(rand, dtype, d, form):
+    """forward_form follows dtype and head dim, the tensor-core counter
+    moves exactly for the "mma" form, and either form meets its plain
+    version."""
+    assert small_seq.forward_form(dtype, d) == form
+    x = [rand(dtype, 9, 16, 2 * d) for _ in range(3)]
+    y = [rand(dtype, 5, 64, d) for _ in range(3)]
+    before = small_seq.tensor_core_launches
+    got = (K.ctg_packed(*x, 16, 2, 0.2), K.ssa_packed(*y, 16, 60))
+    assert small_seq.tensor_core_launches == before + 2 * (form == "mma")
+    torch.testing.assert_close(got[0], small_seq.plain_ctg_packed(*x, 16, 2, 0.2),
+                               **TOL[dtype])
+    torch.testing.assert_close(got[1], small_seq.plain_ssa_packed(*y, 16, 60), **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_small_seq_tensor_core_rejects_misaligned(rand):
+    """The tensor-core forms load 16 bytes at a time: a bf16 operand that
+    does not start on 16 bytes raises (no quiet fallback)."""
+    x = rand(torch.bfloat16, 9 * 16 * 80 + 1)[1:].view(9 * 16, 80)
+    with pytest.raises(ValueError):
+        K.ctg_packed(x, x, x, 16, 2, 0.2)
+    y = rand(torch.bfloat16, 3 * 64 * 40 + 1)[1:].view(3, 64, 40)
+    with pytest.raises(ValueError):
+        K.ssa_packed(y, y, y, 16)
 
 
 TOK_VARIANTS = {  # wrapper, plain version (returns (out, flag))

@@ -12,6 +12,8 @@ the same option.  Bounds as tests/test_torch_pipeline.py: final latents
 1e-3 abs + 1e-3 rel; equal paths 1e-5.
 """
 
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -126,6 +128,42 @@ def test_context_rotate(setup):
            run_port(pm, inputs, 6, steps=1), 1e-5, 1e-5)
     _close(run_port(pm, inputs, 6, context_rotate=True),
            run_jax(jm, inputs, 6, context_rotate=True))
+
+
+@pytest.mark.parametrize("opts", [{}, dict(encoder_cache_interval=2),
+                                  dict(context_rotate=True)],
+                         ids=["exact", "encoder-cache", "rotate"])
+def test_pose_features_gathered_per_window_batch(setup, monkeypatch, opts):
+    """The windowed sampler (2 window batches of 2, 2 steps) gathers each
+    batch's CFG-doubled pose features for the UNet calls of its step and
+    keeps none past them, as the original streams them per window: when a
+    UNet call starts, every pose tensor an earlier call was given is freed
+    unless this call was given it too (the encoder cache's encode and decode
+    of one batch), and each call's features are the clip's at the batch's
+    frames, doubled for CFG."""
+    _, pm, inputs = setup
+    unet = pm.denoising_unet
+    forward = unet.forward
+    pose = inputs(6)[1][3]
+    seen, calls = [], []
+
+    def spy(*args, pose_cond_fea, **kw):
+        alive = [r() for r in seen if r() is not None]
+        assert all(any(a is p for p in pose_cond_fea) for a in alive)
+        seen.extend(weakref.ref(p) for p in pose_cond_fea)
+        for p, full in zip(pose_cond_fea, pose):
+            rows = p.shape[0] // 2  # CFG halves, each the batch's frames
+            assert torch.equal(p[:rows], p[rows:])
+            hits = [(full[0].unsqueeze(0) == f.unsqueeze(1)).flatten(2).all(-1).any(-1)
+                    for f in p[:rows]]
+            assert all(bool(h.all()) for h in hits)
+        calls.append(args[1][0].item())
+        return forward(*args, pose_cond_fea=pose_cond_fea, **kw)
+
+    monkeypatch.setattr(unet, "forward", spy)
+    latents = run_port(pm, inputs, 6, **opts)
+    assert len(set(calls)) == STEPS and len(calls) >= 2 * STEPS
+    assert np.isfinite(latents).all()
 
 
 @pytest.mark.parametrize("method", ["linear", "slerp"])

@@ -78,3 +78,23 @@ def test_sdpa_short_sequences_match_jax_small_seq(b, s, h, d):
     before = K.ctg_packed.launches
     _close(scaled_dot_product_attention(*map(torch.from_numpy, (q, k, v))), ref)
     assert K.ctg_packed.launches == before  # CPU tensors: the plain version
+
+
+@pytest.mark.parametrize("dtype,d,form", [
+    (torch.bfloat16, 8, "mma"), (torch.bfloat16, 40, "mma"), (torch.bfloat16, 160, "mma"),
+    (torch.bfloat16, 20, "fma"), (torch.float32, 40, "fma"), (torch.float32, 20, "fma"),
+])
+def test_forward_form_by_dtype_and_head_dim(dtype, d, form):
+    """bf16 with d % 8 == 0 takes the tensor-core form of K6 and K9 on the
+    card, everything else the FMA kernel; other dtypes have no form.  On
+    the CPU no form runs and no tensor-core launch is counted."""
+    from aniportrait_tpu_torch.ops.kernels import small_seq
+
+    assert small_seq.forward_form(dtype, d) == form
+    with pytest.raises(TypeError):
+        small_seq.forward_form(torch.float16, d)
+    before = small_seq.tensor_core_launches
+    x = torch.zeros(2, 16, 2 * d, dtype=dtype)
+    K.ctg_packed(x, x, x, 16, 2, 0.3)
+    K.ssa_packed(x, x, x, 8)
+    assert small_seq.tensor_core_launches == before
