@@ -75,16 +75,23 @@ class PipelineModules:
         return PipelineModules(scheduler=self.scheduler, **moved)
 
 
-def make_models(size: str = "full", use_motion_module: bool = True) -> Dict[str, nn.Module]:
+def make_models(size: str = "full", use_motion_module: bool = True,
+                unet_overrides: Dict[str, Any] | None = None) -> Dict[str, nn.Module]:
     """Construct the five models (default torch init) on the current default
-    device; ``with torch.device('meta')`` builds them without memory."""
+    device; ``with torch.device('meta')`` builds them without memory.
+    ``unet_overrides``: extra ``AniUNet`` arguments of the denoising UNet,
+    the inference YAMLs' ``unet_additional_kwargs`` (``motion_module_mid_block``,
+    ``motion_module_resolutions``, ``motion_pe_max_len``,
+    ``use_inflated_groupnorm``), as ``aniportrait_tpu/factory.py:
+    build_model_defs`` takes them."""
     cfg = SIZES[size]
     return dict(
         vae=AutoencoderKL(**cfg["vae"]),
         clip=CLIPVisionModelWithProjection(**cfg["clip"]),
         reference_unet=AniUNet(**cfg["unet"], use_motion_module=False,
                                has_output_head=False),
-        denoising_unet=AniUNet(**cfg["unet"], use_motion_module=use_motion_module),
+        denoising_unet=AniUNet(**cfg["unet"], use_motion_module=use_motion_module,
+                               **(unet_overrides or {})),
         pose_guider=PoseGuider(**cfg["pose_guider"]),
     )
 
@@ -121,12 +128,13 @@ def cast(model: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 def build_models(size: str = "full", device="cuda", dtype=torch.float32, seed: int = 0,
                  use_motion_module: bool = True,
-                 scheduler_kwargs: Dict[str, Any] | None = None) -> PipelineModules:
+                 scheduler_kwargs: Dict[str, Any] | None = None,
+                 unet_overrides: Dict[str, Any] | None = None) -> PipelineModules:
     """The five models at ``size`` on ``device`` in ``dtype``, eval mode, no
     gradients, weights drawn on the device from ``seed``."""
     device = torch.device(device)
     with torch.device("meta"):
-        models = make_models(size, use_motion_module)
+        models = make_models(size, use_motion_module, unet_overrides)
     gen = torch.Generator(device=device).manual_seed(seed)
     for model in models.values():
         model.to_empty(device=device)

@@ -46,13 +46,17 @@ class AniUNet(nn.Module):
                  motion_module_mid_block: bool = True,
                  motion_module_resolutions: Sequence[int] = (1, 2, 4, 8),
                  motion_heads: int = 8, motion_transformer_blocks: int = 1,
-                 motion_pe_max_len: int = 32, has_output_head: bool = True):
+                 motion_pe_max_len: int = 32, use_inflated_groupnorm: bool = True,
+                 has_output_head: bool = True):
         super().__init__()
         ch = list(block_out_channels)
         n = len(ch)
         self.layers_per_block = layers_per_block
         self.motion_pe_max_len = motion_pe_max_len
         temb = ch[0] * 4
+
+        def resnet(c_in, c_out):
+            return ResnetBlock3D(c_in, c_out, temb, inflated=use_inflated_groupnorm)
 
         def spatial(c):
             return SpatialTransformer(c, attention_heads, cross_attention_dim)
@@ -69,7 +73,7 @@ class AniUNet(nn.Module):
             blk = _Block()
             cin = ch[max(i - 1, 0)]
             blk.resnets = nn.ModuleList([
-                ResnetBlock3D(cin if j == 0 else ch[i], ch[i], temb)
+                resnet(cin if j == 0 else ch[i], ch[i])
                 for j in range(layers_per_block)
             ])
             if i < n - 1:
@@ -83,7 +87,7 @@ class AniUNet(nn.Module):
 
         self.mid_block = _Block()
         self.mid_block.resnets = nn.ModuleList(
-            [ResnetBlock3D(ch[-1], ch[-1], temb) for _ in range(2)])
+            [resnet(ch[-1], ch[-1]) for _ in range(2)])
         self.mid_block.attentions = nn.ModuleList([spatial(ch[-1])])
         if use_motion_module and motion_module_mid_block:
             self.mid_block.motion_modules = nn.ModuleList([motion(ch[-1])])
@@ -95,10 +99,8 @@ class AniUNet(nn.Module):
             prev_out, out_c = rev[max(i - 1, 0)], rev[i]
             in_c = rev[min(i + 1, n - 1)]
             blk.resnets = nn.ModuleList([
-                ResnetBlock3D(
-                    (prev_out if j == 0 else out_c)
-                    + (in_c if j == layers_per_block else out_c),
-                    out_c, temb)
+                resnet((prev_out if j == 0 else out_c)
+                       + (in_c if j == layers_per_block else out_c), out_c)
                 for j in range(layers_per_block + 1)
             ])
             if i > 0:
@@ -112,7 +114,8 @@ class AniUNet(nn.Module):
             self.up_blocks.append(blk)
 
         if has_output_head:
-            self.conv_norm_out = GroupNorm(32, ch[0], eps=1e-5)
+            self.conv_norm_out = GroupNorm(32, ch[0], eps=1e-5,
+                                           inflated=use_inflated_groupnorm)
             self.conv_out = nn.Conv2d(ch[0], out_channels, 3, padding=1)
         else:
             self.conv_norm_out = self.conv_out = None
@@ -183,7 +186,7 @@ class AniUNet(nn.Module):
 
         if self.conv_out is None:
             return None, banks
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
+        x = self.conv_out(F.silu(self.conv_norm_out(x, f)))
         return x.reshape(b, f, *x.shape[1:]), banks
 
     def _encode(self, x, emb, f, fold, pose_cond_fea, spatial, motion_windows):

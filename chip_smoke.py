@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase long-clip  # kernels, references, long clips
     python3 chip_smoke.py --phase train      # only the two training phases
     python3 chip_smoke.py --phase tok-ab     # guards, token-kernel A/B, K9 path
+    python3 chip_smoke.py --phase entry      # the loader, pose2vid CLI and bench entries
 
 Phases, each of which fails the run (nonzero exit) on any error:
 
@@ -39,7 +40,8 @@ Phases, each of which fails the run (nonzero exit) on any error:
 3. pipeline: the full-size model (random bf16 weights from a seed) through
    ``Pose2VideoPipeline`` at 512x512, 16 frames, 25 DDIM steps, CFG 3.5:
    two requests with different inputs and seeds.  K1-K4 must have launched
-   during this phase, and the tensor-core flash forward and temporal kernel.
+   during this phase as often as ``attention_reckoning`` counts from the
+   models, and the tensor-core flash forward and temporal kernel.
 4. long clips: the same model at 576x768 (a 72x96 latent whose 9x12 level
    K3 cannot pack), 28 frames, 25 steps, CFG 3.5, each request through
    ``run_cases`` on its own pipeline over one set of modules: A, the exact
@@ -69,6 +71,19 @@ Phases, each of which fails the run (nonzero exit) on any error:
    forward (K9 on the tensor cores) and backward at the 512x512 request's
    top-level motion-module width, against the library forward, and its
    float32 gradients on the card against the CPU's at a cut batch.
+8. entry points (``entry``, run after the pipeline phase): ``load_pipeline``
+   (``aniportrait_tpu_torch/scripts/loader.py``) from the settings of
+   configs/prompts/animation.yaml and configs/inference/inference_v2.yaml
+   (``ENTRY_CONFIG``), random weights, full size, bf16; the pose2vid CLI's
+   ``generate`` at 512x512, 16 frames, 25 steps, CFG 3.5 on a seeded
+   reference image and the pose maps of tests/fixtures/landmark_golden.npz:
+   the grid the CLI would write must have its shape, finite results, and
+   K1-K4 must launch exactly as ``attention_reckoning`` counts from the
+   models; the bench entry (``aniportrait_tpu_torch/scripts/bench.py``) in
+   its own process at its default config and at ``vid2vid24``, each printing
+   one JSON line; and the loader's weight path: tiny bf16 models written as
+   the reference's files (``write_checkpoints``) and read back onto the card
+   bit for bit.
 
 The last line of standard output is the device summary JSON; the line before
 it lists the kernels.  Without a CUDA device the script exits nonzero.
@@ -704,6 +719,11 @@ def pipeline_phase(results: dict) -> None:
         f"model's structure: {by_level}; counted over both requests: {counts['K3']}")
     if 2 * sum(by_level.values()) != counts["K3"]:
         raise SystemExit("pipeline: K3 launches differ from the model's reckoning")
+    want = attention_reckoning(pipe.m, res, res, frames, steps)
+    off = {k: (counts[k], 2 * n) for k, n in want.items() if counts[k] != 2 * n}
+    if off:
+        raise SystemExit(f"pipeline: launches over both requests (counted, reckoned) "
+                         f"differ: {off}")
     for kid in serving:
         results.setdefault(kid, {})["launches"] = counts[kid]
 
@@ -847,6 +867,269 @@ def _long_clip_case(key: str, seed: int, width: int, height: int, frames: int) -
     return dict(ref_image=rs.randint(0, 255, (height, width, 3), np.uint8),
                 pose_images=[rs.randint(0, 255, (height, width, 3), np.uint8)
                              for _ in range(frames)], key=key)
+
+
+# -------------------------------------------------------------- entry points
+# configs/prompts/animation.yaml with its inference_config
+# (configs/inference/inference_v2.yaml) in place of the path, as a literal:
+# the card's machine may lack PyYAML.  tests/test_torch_loader.py holds it
+# equal to load_config of the two files.
+ENTRY_CONFIG = {
+    "pretrained_base_model_path": "./pretrained_model/stable-diffusion-v1-5",
+    "pretrained_vae_path": "./pretrained_model/sd-vae-ft-mse",
+    "image_encoder_path": "./pretrained_model/image_encoder",
+    "denoising_unet_path": "./pretrained_model/denoising_unet.pth",
+    "reference_unet_path": "./pretrained_model/reference_unet.pth",
+    "pose_guider_path": "./pretrained_model/pose_guider.pth",
+    "motion_module_path": "./pretrained_model/motion_module.pth",
+    "inference_config": {
+        "unet_additional_kwargs": {
+            "use_inflated_groupnorm": True,
+            "unet_use_cross_frame_attention": False,
+            "unet_use_temporal_attention": False,
+            "use_motion_module": True,
+            "motion_module_resolutions": [1, 2, 4, 8],
+            "motion_module_mid_block": True,
+            "motion_module_decoder_only": False,
+            "motion_module_type": "Vanilla",
+            "motion_module_kwargs": {
+                "num_attention_heads": 8,
+                "num_transformer_block": 1,
+                "attention_block_types": ["Temporal_Self", "Temporal_Self"],
+                "temporal_position_encoding": True,
+                "temporal_position_encoding_max_len": 32,
+                "temporal_attention_dim_div": 1,
+            },
+        },
+        "noise_scheduler_kwargs": {
+            "beta_start": 0.00085,
+            "beta_end": 0.012,
+            "beta_schedule": "linear",
+            "clip_sample": False,
+            "steps_offset": 1,
+            "prediction_type": "v_prediction",
+            "rescale_betas_zero_snr": True,
+            "timestep_spacing": "trailing",
+        },
+        "sampler": "DDIM",
+    },
+    "weight_dtype": "fp16",
+    "test_cases": {"./configs/inference/ref_images/solo.png":
+                   ["./configs/inference/pose_videos/solo_pose.mp4"]},
+}
+ENTRY_BENCH_TIMEOUT = 600  # seconds for one bench subprocess
+
+
+def attention_reckoning(modules, height: int, width: int, frames: int,
+                        steps: int) -> dict:
+    """K1-K4 launches of one request of the whole-clip sampler with CFG
+    (``drop_mode="first_half"``), from the models' structure and
+    ``attention_route``: the ReferenceNet once on the 2 CFG rows of one
+    frame, the denoising UNet at each step (the unconditional half's self
+    attention without the bank, the conditional half's with it, the cross
+    attention over the one CLIP token), the PoseGuider's transformers once
+    on the clip, and the motion modules (``temporal_routes``)."""
+    from collections import Counter
+
+    from aniportrait_tpu_torch.ops.attention import attention_route
+
+    hlat, wlat = height // 8, width // 8
+    counts = Counter()
+
+    def unet_levels(unet):
+        n = len(unet.down_blocks)
+        sizes = [(hlat, wlat)]
+        for _ in range(n - 1):
+            sizes.append(((sizes[-1][0] + 1) // 2, (sizes[-1][1] + 1) // 2))
+        blocks = [(b, i) for i, b in enumerate(unet.down_blocks)]
+        blocks += [(unet.mid_block, n - 1)]
+        blocks += [(b, n - 1 - i) for i, b in enumerate(unet.up_blocks)]
+        for blk, level in blocks:
+            s = sizes[level][0] * sizes[level][1]
+            for st in getattr(blk, "attentions", []):
+                for block in st.transformer_blocks:
+                    h = block.attn1.heads
+                    yield s, h, block.attn1.to_q.out_features // h
+
+    for s, h, d in unet_levels(modules.reference_unet):
+        counts[attention_route(2, s, s, h, d)] += 1
+        counts[attention_route(2, s, 1, h, d)] += 1
+    for s, h, d in unet_levels(modules.denoising_unet):
+        counts[attention_route(frames, s, s, h, d)] += steps
+        counts[attention_route(frames, s, s, h, d, bank=s)] += steps
+        counts[attention_route(2 * frames, s, 1, h, d)] += steps
+    pg = modules.pose_guider
+    side = (height // 8, width // 8)
+    for i in range(pg.num_stages):
+        if i < pg.num_stages - 1:
+            side = ((side[0] + 1) // 2, (side[1] + 1) // 2)
+        block = getattr(pg, f"cross_attn{i + 1}").transformer_blocks[0]
+        h = block.attn1.heads
+        s = side[0] * side[1]
+        counts[attention_route(frames, s, s, h, block.attn1.to_q.out_features // h)] += 1
+    for _, _, route in temporal_routes(modules.denoising_unet, hlat, wlat, 2, frames):
+        counts[route] += steps
+    return {kid: counts[kid] for kid in ("K1", "K2", "K3", "K4")}
+
+
+def write_checkpoints(modules, root, base=None, safetensors: bool = False) -> dict:
+    """The reference's weight files from ``modules``, laid out as the prompt
+    configs name them: HF-style folders for the SD-1.5 UNet (from ``base``'s
+    denoising UNet without its motion modules, default ``modules``), the VAE
+    and the image encoder (``.safetensors`` with ``safetensors``, else
+    ``.bin``), and ``reference_unet.pth``, ``motion_module.pth`` (the motion
+    modules), ``denoising_unet.pth`` (the rest, wrapped in ``state_dict``)
+    and ``pose_guider.pth``.  Returns the config's path keys."""
+    import os
+
+    import torch
+
+    def cpu(model, keep=lambda k: True):
+        return {k: v.detach().cpu().contiguous().clone()
+                for k, v in model.state_dict().items() if keep(k)}
+
+    def save(state, path, hf: bool = False):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if hf and safetensors:
+            from safetensors.torch import save_file
+
+            save_file(state, path)
+        else:
+            torch.save(state, path)
+
+    def hf(folder, stem):
+        return os.path.join(root, folder, stem + (".safetensors" if safetensors else ".bin"))
+
+    motion = lambda k: ".motion_modules." in k
+    base = base or modules
+    paths = dict(pretrained_base_model_path=os.path.join(root, "sd15"),
+                 pretrained_vae_path=os.path.join(root, "vae"),
+                 image_encoder_path=os.path.join(root, "image_encoder"),
+                 reference_unet_path=os.path.join(root, "reference_unet.pth"),
+                 motion_module_path=os.path.join(root, "motion_module.pth"),
+                 denoising_unet_path=os.path.join(root, "denoising_unet.pth"),
+                 pose_guider_path=os.path.join(root, "pose_guider.pth"))
+    save(cpu(base.denoising_unet, lambda k: not motion(k)),
+         hf("sd15/unet", "diffusion_pytorch_model"), hf=True)
+    save(cpu(modules.vae), hf("vae", "diffusion_pytorch_model"), hf=True)
+    save(cpu(modules.clip), hf("image_encoder", "model" if safetensors else "pytorch_model"),
+         hf=True)
+    save(cpu(modules.reference_unet), paths["reference_unet_path"])
+    save(cpu(modules.denoising_unet, motion), paths["motion_module_path"])
+    save({"state_dict": cpu(modules.denoising_unet, lambda k: not motion(k))},
+         paths["denoising_unet_path"])
+    save(cpu(modules.pose_guider), paths["pose_guider_path"])
+    return paths
+
+
+def _entry_bench(argv: list) -> dict:
+    """One bench run in its own process (its standard output is exactly the
+    one JSON line); returns the line, parsed."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "aniportrait_tpu_torch.scripts.bench",
+                          *argv], cwd=root, capture_output=True, text=True,
+                         timeout=ENTRY_BENCH_TIMEOUT)
+    dt = time.perf_counter() - t0
+    for line in res.stderr.strip().splitlines()[-8:]:
+        log(f"[entry] bench {' '.join(argv) or '(default)'} stderr: {line}")
+    lines = res.stdout.strip().splitlines()
+    if res.returncode != 0 or len(lines) != 1:
+        raise SystemExit(f"entry: bench {argv} exited {res.returncode} with "
+                         f"{len(lines)} lines on stdout")
+    row = json.loads(lines[0])
+    if sorted(row) != ["metric", "unit", "value", "vs_baseline"] or not row["value"] > 0:
+        raise SystemExit(f"entry: bench {argv} printed {row}")
+    log(f"[entry] bench {' '.join(argv) or '(default)'} on {gpu_line()} ({dt:.1f} s "
+        f"in all): {lines[0]}")
+    return row
+
+
+def entry_phase() -> None:
+    """The user's entry points on the card: ``load_pipeline`` from the
+    default prompt and inference settings (random weights, full size,
+    bf16); the pose2vid CLI's generation at 512x512, 16 frames, 25 steps,
+    CFG 3.5 on cases made from arrays (the card has no OpenCV); the bench
+    entry at its default and ``vid2vid24`` configs; and the loader's weight
+    files at tiny size, read back bit for bit."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aniportrait_tpu_torch import factory
+    from aniportrait_tpu_torch.config import Config
+    from aniportrait_tpu_torch.ops import kernels as K
+    from aniportrait_tpu_torch.scripts import pose2vid
+    from aniportrait_tpu_torch.scripts.loader import load_pipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    res, frames, steps = 512, 16, 25
+    t0 = time.perf_counter()
+    pipe = load_pipeline(Config(ENTRY_CONFIG), random_init=True, size="full",
+                         device="cuda")
+    torch.cuda.synchronize()
+    log(f"[entry] load_pipeline (random init, full size, bf16, cuda) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    golden = np.load(os.path.join(root, "tests", "fixtures", "landmark_golden.npz"))
+    names = ("lyl", "solo", "Aragaki")
+    poses = [golden[f"{names[i % 3]}_pose"] for i in range(frames)]
+    ref = np.random.RandomState(300).randint(0, 255, (res, res, 3), np.uint8)
+    case = dict(ref_image=ref, pose_images=poses, ref_pose_image=golden["solo_pose"],
+                kw=dict(video_length=frames))
+    args = pose2vid.parse_args(["-W", str(res), "-H", str(res), "--steps", str(steps),
+                                "--cfg", "3.5", "--seed", "0"])
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    grids = list(pose2vid.generate(pipe, [case], args))
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    want = attention_reckoning(pipe.m, res, res, frames, steps)
+    (key, grid), = grids
+    log(f"[entry] pose2vid generate {res}x{res}, {frames} frames, {steps} steps, CFG 3.5, "
+        f"bf16: {dt:.2f} s, {frames / dt:.3f} frames/s; phases {pipe.timer.report()}; "
+        f"grid {grid.shape}; kernel launches {counts}, reckoned {want}")
+    if grid.shape != (3, frames, res, res, 3):
+        raise SystemExit(f"entry: grid shape {grid.shape}")
+    video = grid[2]
+    if not np.isfinite(video).all() or video.min() < 0 or video.max() > 1:
+        raise SystemExit("entry: output not finite in [0, 1]")
+    if not (np.array_equal(grid[0], np.repeat(ref[None] / np.float32(255), frames, 0))
+            and np.array_equal(grid[1], np.stack(poses) / np.float32(255))):
+        raise SystemExit("entry: the grid's reference or pose row differs from its input")
+    off = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+    if off:
+        raise SystemExit(f"entry: kernel launches (counted, reckoned) differ: {off}")
+    tensor_core_check("entry", ("forward", "temporal"))
+    del pipe, grids, grid, video
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _entry_bench([])
+    _entry_bench(["--config", "vid2vid24"])
+
+    src = factory.build_models("tiny", "cuda", torch.bfloat16, seed=5)
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
+        paths = write_checkpoints(src, tmp)
+        t0 = time.perf_counter()
+        loaded = load_pipeline(Config({**ENTRY_CONFIG, **paths}), size="tiny",
+                               device="cuda").m
+        dt = time.perf_counter() - t0
+    differ = [f"{name}.{k}" for name, model in src.models().items()
+              for k, v in model.state_dict().items()
+              if not torch.equal(v, loaded.models()[name].state_dict()[k])]
+    n = sum(len(m.state_dict()) for m in src.models().values())
+    log(f"[entry] loader: tiny bf16 weights written as .pth files and HF folders and "
+        f"read back onto the card in {dt:.1f} s: {n - len(differ)} of {n} tensors bit-equal")
+    if differ:
+        raise SystemExit(f"entry: loaded weights differ from their source: {differ[:5]}")
 
 
 # ----------------------------------------------------------------- training
@@ -1187,7 +1470,8 @@ def folded_small_seq_phase(results: dict) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=("all", "kernels", "long-clip", "train", "tok-ab"),
+    parser.add_argument("--phase", choices=("all", "kernels", "long-clip", "train", "tok-ab",
+                                            "entry"),
                         default="all")
     args = parser.parse_args()
 
@@ -1207,6 +1491,10 @@ def main() -> int:
         reference_phase()
     if args.phase == "all":
         pipeline_phase(results)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.phase in ("all", "entry"):
+        entry_phase()
         gc.collect()
         torch.cuda.empty_cache()
     if args.phase in ("all", "long-clip"):

@@ -1,8 +1,9 @@
 """(f) The port imports nothing of JAX or of the JAX package: a fresh
 interpreter imports every module of aniportrait_tpu_torch, and neither jax,
-flax nor aniportrait_tpu (or any module under them) is in sys.modules.  The
-GPU smoke's path (factory, pipeline, kernels, a whole-clip generation) loads
-none of them either."""
+flax, aniportrait_tpu, the root scripts package nor the root bench.py (or
+any module under them) is in sys.modules.  The GPU smoke's path (factory,
+pipeline, kernels, a whole-clip generation; the loader and the pose2vid
+CLI's generation) loads none of them either."""
 
 import pkgutil
 import subprocess
@@ -12,6 +13,9 @@ from pathlib import Path
 import aniportrait_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
+# top-level packages the port and the smoke path must not load: JAX, flax,
+# the JAX package, and the JAX package's root scripts package and bench.py
+REFUSED = ("jax", "jaxlib", "flax", "aniportrait_tpu", "scripts", "bench")
 
 
 def test_port_imports_no_jax():
@@ -24,8 +28,7 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'aniportrait_tpu'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {REFUSED!r})\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -42,8 +45,16 @@ def test_smoke_path_loads_nothing_of_the_jax_package():
         "rs = np.random.RandomState(0)\n"
         "img = rs.randint(0, 255, (64, 64, 3), np.uint8)\n"
         "pipe(img, [img, img], None, 64, 64, 2, num_inference_steps=1)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'aniportrait_tpu'))\n"
+        "import chip_smoke\n"
+        "from aniportrait_tpu_torch.config import Config\n"
+        "from aniportrait_tpu_torch.scripts import bench, loader, pose2vid, vid2vid\n"
+        "pipe = loader.load_pipeline(Config(chip_smoke.ENTRY_CONFIG), random_init=True,\n"
+        "                            size='micro', device='cpu')\n"
+        "args = pose2vid.parse_args(['-W', '64', '-H', '64', '--steps', '1'])\n"
+        "case = dict(ref_image=img, pose_images=[img, img], kw=dict(video_length=2))\n"
+        "(_, grid), = pose2vid.generate(pipe, [case], args)\n"
+        "assert grid.shape == (3, 2, 64, 64, 3), grid.shape\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {REFUSED!r})\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
