@@ -9,6 +9,10 @@ reference's ``from_pretrained_2d`` order: the SD-1.5 UNet, overlaid by
 ``reference_unet.pth`` for the ReferenceNet, and by ``motion_module.pth``
 and then ``denoising_unet.pth`` for the denoising UNet; plus the VAE, the
 CLIP image encoder and the PoseGuider.
+
+:func:`load_audio_models` builds Audio2Mesh and Audio2Pose from the audio
+inference config (``configs/inference/inference_audio.yaml``; port of
+``scripts/loader.py:load_audio_models``), float32 as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from typing import Dict, List, Tuple
 import torch
 
 from aniportrait_tpu_torch import factory
+from aniportrait_tpu_torch.audio.audio2mesh import Audio2MeshModel
+from aniportrait_tpu_torch.audio.audio2pose import Audio2PoseModel
 from aniportrait_tpu_torch.config import Config, load_config
 from aniportrait_tpu_torch.models.motion_module import PositionalEncoding
 from aniportrait_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
@@ -27,6 +33,8 @@ from aniportrait_tpu_torch.schedulers import DDIMScheduler
 from aniportrait_tpu_torch.utils.quality_gate import enforce_approximation_gate
 from aniportrait_tpu_torch.weights import convert as cv
 from aniportrait_tpu_torch.weights.load import (
+    audio2mesh_rules,
+    audio2pose_rules,
     find_weights,
     load_into,
     load_torch_state_dict,
@@ -34,12 +42,17 @@ from aniportrait_tpu_torch.weights.load import (
 )
 
 
+def sub_config(value) -> Config:
+    """A config named by a prompt config: a YAML path, or its settings as a
+    mapping."""
+    return Config(dict(value)) if isinstance(value, Mapping) else load_config(str(value))
+
+
 def inference_settings(config: Config) -> Tuple[Dict, Dict, bool]:
     """(denoising-UNet overrides, scheduler kwargs, use_motion_module) from
     the prompt config's ``inference_config``: a YAML path, or the same
     settings as a mapping."""
-    infer = config.inference_config
-    infer_cfg = Config(dict(infer)) if isinstance(infer, Mapping) else load_config(str(infer))
+    infer_cfg = sub_config(config.inference_config)
     uk = infer_cfg.unet_additional_kwargs
     mk = uk.get("motion_module_kwargs")
     # the reference's unet_additional_kwargs knobs (v1: no mid-block motion
@@ -131,3 +144,54 @@ def load_pipeline(config: Config, dtype=torch.bfloat16, encoder_cache_interval: 
     return Pose2VideoPipeline(modules, dtype=dtype,
                               encoder_cache_interval=encoder_cache_interval,
                               window_fusion=window_fusion, context_rotate=context_rotate)
+
+
+def audio_checkpoint(path: str, wav2vec2_path: str) -> Dict[str, torch.Tensor]:
+    """An audio model's state from its task checkpoint; where the file
+    holds only the heads (no ``audio_encoder.`` key), the encoder comes from
+    the wav2vec2 model folder, as ``Wav2Vec2Model.from_pretrained`` reads it
+    (the keys under a CTC checkpoint's ``wav2vec2.`` prefix, its ``lm_head``
+    left out).  The positional conv's weight norm is merged."""
+    state = dict(load_torch_state_dict(path))
+    if not any(k.startswith("audio_encoder.") for k in state):
+        w2v = load_torch_state_dict(find_weights(wav2vec2_path))
+        prefix = "wav2vec2." if any(k.startswith("wav2vec2.") for k in w2v) else ""
+        state.update({"audio_encoder." + k[len(prefix):]: v for k, v in w2v.items()
+                      if k.startswith(prefix)})
+    return cv.merge_pos_conv_weight_norm(state, "audio_encoder.")
+
+
+def load_audio_models(audio_config: Config, random_init: bool = False, device="cuda",
+                      seed: int = 0, wav2vec2: Dict | None = None
+                      ) -> Tuple[Audio2MeshModel, Audio2PoseModel]:
+    """Audio2Mesh and Audio2Pose (reference audio2vid.py:66-72) on
+    ``device``, float32, eval mode: from ``pretrained_model.a2m_ckpt`` and
+    ``a2p_ckpt``, or with ``random_init`` seeded random weights (``seed``)
+    and no file.  A checkpoint key that no rule takes raises.
+    ``wav2vec2``: the encoders' sizes (default wav2vec2-base), for small
+    test models."""
+    device = torch.device(device)
+    with torch.device("meta"):
+        models = tuple(
+            cls(out_dim=cfg.out_dim, latent_dim=cfg.latent_dim,
+                only_last_features=bool(cfg.only_last_fetures), wav2vec2=wav2vec2)
+            for cls, cfg in ((Audio2MeshModel, audio_config.a2m_model),
+                             (Audio2PoseModel, audio_config.a2p_model))
+        )
+    gen = torch.Generator(device=device).manual_seed(seed)
+    files = audio_config.get("pretrained_model")
+    sources = ((audio_config.a2m_model, "a2m_ckpt", audio2mesh_rules()),
+               (audio_config.a2p_model, "a2p_ckpt", audio2pose_rules()))
+    for model, (model_cfg, key, rules) in zip(models, sources):
+        model.to_empty(device=device)
+        if random_init:
+            factory.init_weights(model, gen)
+        else:
+            path = str(files[key])
+            unused = load_into(model, audio_checkpoint(path, str(model_cfg.model_path)),
+                               rules, path)
+            if unused:
+                raise ValueError(f"{path}: {len(unused)} keys no conversion rule takes: "
+                                 f"{unused[:8]}")
+        model.float().eval().requires_grad_(False)
+    return models

@@ -2,8 +2,10 @@
 own copy.
 
 The same rules as the JAX package's ``aniportrait_tpu/weights/convert.py``
-(UNet with motion modules, VAE, CLIP vision tower, PoseGuider), kept here so
-that the port imports nothing of that package.  Each rule is
+(UNet with motion modules, VAE, CLIP vision tower, PoseGuider, and the audio
+models: wav2vec2 with its weight-normed positional conv, the Audio2Mesh and
+Audio2Pose heads), kept here so that the port imports nothing of that
+package.  Each rule is
 ``(torch key regex, flax path template, layout transform)``; a template
 ``skip`` marks a key without a flax counterpart and ``stats:`` one that lives
 in the BatchNorm ``batch_stats`` collection.  ``weights/from_jax.py`` applies
@@ -509,3 +511,214 @@ def _conv_bn_rules(conv_tp: str, bn_tp: str, fp: str) -> List[Rule]:
         (rf"{bn_tp}\.running_var", f"stats:{fp}/bn/var", t_none),
         (rf"{bn_tp}\.num_batches_tracked", "skip", t_none),
     ]
+
+
+# --------------------------------------------------------------- wav2vec2
+def wav2vec2_rules(prefix: str = "") -> List[Rule]:
+    p = re.escape(prefix)
+    rules: List[Rule] = [
+        (
+            rf"{p}feature_extractor\.conv_layers\.(\d+)\.conv\.weight",
+            "feature_extractor/conv_\\1/kernel",
+            t_conv1d,
+        ),
+        (
+            rf"{p}feature_extractor\.conv_layers\.0\.layer_norm\.weight",
+            "feature_extractor/gn_scale",
+            t_none,
+        ),
+        (
+            rf"{p}feature_extractor\.conv_layers\.0\.layer_norm\.bias",
+            "feature_extractor/gn_bias",
+            t_none,
+        ),
+        (rf"{p}feature_projection\.layer_norm\.weight", "fp_layer_norm/scale", t_none),
+        (rf"{p}feature_projection\.layer_norm\.bias", "fp_layer_norm/bias", t_none),
+        (rf"{p}feature_projection\.projection\.weight", "fp_projection/kernel", t_linear),
+        (rf"{p}feature_projection\.projection\.bias", "fp_projection/bias", t_none),
+        (rf"{p}encoder\.pos_conv_embed\.conv\.bias", "pos_conv/bias", t_none),
+        (rf"{p}encoder\.layer_norm\.weight", "encoder_layer_norm/scale", t_none),
+        (rf"{p}encoder\.layer_norm\.bias", "encoder_layer_norm/bias", t_none),
+        (
+            rf"{p}encoder\.layers\.(\d+)\.attention\.([qkv]|out)_proj\.weight",
+            "layer_\\1/\\2_proj/kernel",
+            t_linear,
+        ),
+        (
+            rf"{p}encoder\.layers\.(\d+)\.attention\.([qkv]|out)_proj\.bias",
+            "layer_\\1/\\2_proj/bias",
+            t_none,
+        ),
+        (
+            rf"{p}encoder\.layers\.(\d+)\.layer_norm\.weight",
+            "layer_\\1/layer_norm/scale",
+            t_none,
+        ),
+        (
+            rf"{p}encoder\.layers\.(\d+)\.layer_norm\.bias",
+            "layer_\\1/layer_norm/bias",
+            t_none,
+        ),
+        (
+            rf"{p}encoder\.layers\.(\d+)\.feed_forward\.intermediate_dense\.weight",
+            "layer_\\1/fc1/kernel",
+            t_linear,
+        ),
+        (
+            rf"{p}encoder\.layers\.(\d+)\.feed_forward\.intermediate_dense\.bias",
+            "layer_\\1/fc1/bias",
+            t_none,
+        ),
+        (
+            rf"{p}encoder\.layers\.(\d+)\.feed_forward\.output_dense\.weight",
+            "layer_\\1/fc2/kernel",
+            t_linear,
+        ),
+        (
+            rf"{p}encoder\.layers\.(\d+)\.feed_forward\.output_dense\.bias",
+            "layer_\\1/fc2/bias",
+            t_none,
+        ),
+        (
+            rf"{p}encoder\.layers\.(\d+)\.final_layer_norm\.weight",
+            "layer_\\1/final_layer_norm/scale",
+            t_none,
+        ),
+        (
+            rf"{p}encoder\.layers\.(\d+)\.final_layer_norm\.bias",
+            "layer_\\1/final_layer_norm/bias",
+            t_none,
+        ),
+        (rf"{p}masked_spec_embed", "skip", t_none),
+        (rf"{p}quantizer\..*", "skip", t_none),
+        (rf"{p}project_q\..*", "skip", t_none),
+        (rf"{p}project_hid\..*", "skip", t_none),
+    ]
+    return rules
+
+
+def merge_pos_conv_weight_norm(sd: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Fold the weight-normed positional conv (weight_g/weight_v, or
+    parametrizations.weight.original0/1) into a single conv kernel."""
+    sd = dict(sd)
+    base = f"{prefix}encoder.pos_conv_embed.conv"
+    pairs = [
+        (f"{base}.weight_g", f"{base}.weight_v"),
+        (
+            f"{base}.parametrizations.weight.original0",
+            f"{base}.parametrizations.weight.original1",
+        ),
+    ]
+    for g_key, v_key in pairs:
+        if g_key in sd:
+            g = to_numpy(sd.pop(g_key))
+            v = to_numpy(sd.pop(v_key))
+            # torch weight_norm(dim=2): norm over dims (0, 1); guard the
+            # all-zero column case (v == 0 -> weight 0, not NaN)
+            norm = np.sqrt((v**2).sum(axis=(0, 1), keepdims=True))
+            sd[f"{base}.weight"] = g * v / np.where(norm == 0.0, 1.0, norm)
+    return sd
+
+
+def convert_wav2vec2(sd: Dict[str, Any], prefix: str = "") -> Tuple[Dict, List[str]]:
+    sd = merge_pos_conv_weight_norm(sd, prefix)
+    rules = wav2vec2_rules(prefix) + [
+        (re.escape(prefix) + r"encoder\.pos_conv_embed\.conv\.weight", "pos_conv/kernel", t_conv1d),
+    ]
+    params, _, unused = apply_rules(sd, rules)
+    return params, unused
+
+
+# ------------------------------------------------------------- audio heads
+def convert_audio2mesh(sd: Dict[str, Any]) -> Tuple[Dict, List[str]]:
+    enc_params, unused_enc = convert_wav2vec2(
+        {k: v for k, v in sd.items() if k.startswith("audio_encoder.")},
+        prefix="audio_encoder.",
+    )
+    head_rules: List[Rule] = [
+        (r"in_fn\.weight", "in_fn/kernel", t_linear),
+        (r"in_fn\.bias", "in_fn/bias", t_none),
+        (r"out_fn\.weight", "out_fn/kernel", t_linear),
+        (r"out_fn\.bias", "out_fn/bias", t_none),
+    ]
+    params, _, unused = apply_rules(
+        {k: v for k, v in sd.items() if not k.startswith("audio_encoder.")}, head_rules
+    )
+    params["audio_encoder"] = enc_params
+    return params, unused + unused_enc
+
+
+def _split_in_proj(sd: Dict[str, Any], base: str):
+    """torch MultiheadAttention packed in_proj -> (q, k, v) arrays."""
+    w = to_numpy(sd[f"{base}.in_proj_weight"])
+    b = to_numpy(sd[f"{base}.in_proj_bias"])
+    d = w.shape[0] // 3
+    return (w[:d], w[d : 2 * d], w[2 * d :]), (b[:d], b[d : 2 * d], b[2 * d :])
+
+
+def convert_audio2pose(sd: Dict[str, Any], num_layers: int = 8) -> Tuple[Dict, List[str]]:
+    enc_params, unused_enc = convert_wav2vec2(
+        {k: v for k, v in sd.items() if k.startswith("audio_encoder.")},
+        prefix="audio_encoder.",
+    )
+    params: Dict = {"audio_encoder": enc_params, "decoder": {}}
+    consumed = set(k for k in sd if k.startswith("audio_encoder."))
+
+    simple: List[Rule] = [
+        (r"in_fn\.weight", "in_fn/kernel", t_linear),
+        (r"in_fn\.bias", "in_fn/bias", t_none),
+        (r"pose_map\.weight", "decoder/pose_map/kernel", t_linear),
+        (r"pose_map\.bias", "decoder/pose_map/bias", t_none),
+        (r"pose_map_r\.weight", "decoder/pose_map_r/kernel", t_linear),
+        (r"pose_map_r\.bias", "decoder/pose_map_r/bias", t_none),
+        (r"id_embed\.weight", "id_embed/embedding", t_none),
+        (r"biased_mask", "skip", t_none),
+        (r"PPE\.pe", "skip", t_none),
+    ]
+    rest = {k: v for k, v in sd.items() if k not in consumed and "transformer_decoder" not in k}
+    p2, _, unused = apply_rules(rest, simple)
+    _deep_merge(params, p2)
+
+    for i in range(num_layers):
+        base = f"transformer_decoder.layers.{i}"
+        lp: Dict = {}
+        (qw, kw, vw), (qb, kb, vb) = _split_in_proj(sd, f"{base}.self_attn")
+        lp["self_q"] = {"kernel": qw.T, "bias": qb}
+        lp["self_k"] = {"kernel": kw.T, "bias": kb}
+        lp["self_v"] = {"kernel": vw.T, "bias": vb}
+        lp["self_out"] = {
+            "kernel": to_numpy(sd[f"{base}.self_attn.out_proj.weight"]).T,
+            "bias": to_numpy(sd[f"{base}.self_attn.out_proj.bias"]),
+        }
+        # cross attention: only the value/out path matters (diagonal memory
+        # mask -> single-key softmax); q/k projections cancel.
+        (_, _, cvw), (_, _, cvb) = _split_in_proj(sd, f"{base}.multihead_attn")
+        lp["cross_v"] = {"kernel": cvw.T, "bias": cvb}
+        lp["cross_out"] = {
+            "kernel": to_numpy(sd[f"{base}.multihead_attn.out_proj.weight"]).T,
+            "bias": to_numpy(sd[f"{base}.multihead_attn.out_proj.bias"]),
+        }
+        for t_name, f_name in (
+            ("linear1", "linear1"),
+            ("linear2", "linear2"),
+            ("norm1", "norm1"),
+            ("norm2", "norm2"),
+            ("norm3", "norm3"),
+        ):
+            w = to_numpy(sd[f"{base}.{t_name}.weight"])
+            b_ = to_numpy(sd[f"{base}.{t_name}.bias"])
+            if t_name.startswith("linear"):
+                lp[f_name] = {"kernel": w.T, "bias": b_}
+            else:
+                lp[f_name] = {"scale": w, "bias": b_}
+        params["decoder"][f"layer_{i}"] = lp
+
+    return params, unused + unused_enc
+
+
+def _deep_merge(dst: Dict, src: Dict):
+    for k, v in src.items():
+        if isinstance(v, dict) and isinstance(dst.get(k), dict):
+            _deep_merge(dst[k], v)
+        else:
+            dst[k] = v

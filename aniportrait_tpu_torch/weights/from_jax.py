@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from aniportrait_tpu_torch.weights import convert as cv
+from aniportrait_tpu_torch.weights import load
 
 # inverse layout transforms (flax -> torch) of convert.py's rules, by name
 INVERSE = {
@@ -85,3 +86,32 @@ def clip_from_jax(module: nn.Module, params: Dict[str, Any]):
 def pose_guider_from_jax(module: nn.Module, variables: Dict[str, Any]):
     return state_dict_from_jax(module, cv.pose_guider_rules(), variables["params"],
                                variables["batch_stats"])
+
+
+def wav2vec2_from_jax(module: nn.Module, params: Dict[str, Any]):
+    return state_dict_from_jax(module, load.wav2vec2_rules(), params)
+
+
+def audio2mesh_from_jax(module: nn.Module, params: Dict[str, Any]):
+    return state_dict_from_jax(module, load.audio2mesh_rules(), params)
+
+
+def audio2pose_from_jax(module: nn.Module, params: Dict[str, Any]):
+    """The decoder's packed ``in_proj`` from the JAX package's separate
+    projections: ``self_q | self_k | self_v``, and ``cross_v`` behind the
+    module's own (unused) cross-attention q and k."""
+    decoder = dict(params["decoder"])
+    own = module.state_dict()
+    for name, lp in params["decoder"].items():
+        if not name.startswith("layer_"):
+            continue
+        own_w = own[f"transformer_decoder.layers.{name[6:]}.multihead_attn.in_proj_weight"]
+        own_b = own[f"transformer_decoder.layers.{name[6:]}.multihead_attn.in_proj_bias"]
+        d = own_w.shape[1]
+        packed = lambda *ps: {
+            "kernel": np.concatenate([np.asarray(p["kernel"]) for p in ps], axis=1),
+            "bias": np.concatenate([np.asarray(p["bias"]) for p in ps])}
+        unused_qk = {"kernel": own_w[: 2 * d].T.numpy(), "bias": own_b[: 2 * d].numpy()}
+        decoder[name] = dict(lp, self_in_proj=packed(lp["self_q"], lp["self_k"], lp["self_v"]),
+                             cross_in_proj=packed(unused_qk, lp["cross_v"]))
+    return state_dict_from_jax(module, load.audio2pose_rules(), {**params, "decoder": decoder})

@@ -14,6 +14,11 @@ lacks, or a model key the file does not give, raises.
 :func:`load_torch_state_dict` and :func:`find_weights` are the port's copies
 of ``aniportrait_tpu/weights/convert.py:load_torch_state_dict`` and
 ``scripts/loader.py:_find_weights``.
+
+The audio models' rule lists (:func:`wav2vec2_rules`,
+:func:`audio2mesh_rules`, :func:`audio2pose_rules`) name the flax paths of
+the JAX package's parameter trees, for ``weights/from_jax.py``; the files
+themselves are read by ``scripts/loader.py:load_audio_models``.
 """
 
 from __future__ import annotations
@@ -102,3 +107,58 @@ def load_into(model: nn.Module, state: Mapping[str, torch.Tensor],
                        f"missing: {missing[:8]}")
     model.load_state_dict({k: torch.as_tensor(state[k]) for k in converted}, strict=False)
     return unused
+
+
+def wav2vec2_rules(prefix: str = "", into: str = "") -> List[cv.Rule]:
+    """The wav2vec2 rules of ``convert_wav2vec2`` (the positional conv's
+    kernel merged from its weight norm), for keys under ``prefix``; the flax
+    paths under ``into``."""
+    rules = cv.wav2vec2_rules(prefix) + [
+        (re.escape(prefix) + r"encoder\.pos_conv_embed\.conv\.weight", "pos_conv/kernel",
+         cv.t_conv1d),
+    ]
+    return [(pat, tmpl if tmpl == "skip" or not into else f"{into}/{tmpl}", tf)
+            for pat, tmpl, tf in rules]
+
+
+def _head_rules(*names: str, into: str = "") -> List[cv.Rule]:
+    return [rule for name in names for rule in (
+        (rf"{name}\.weight", f"{into}{name}/kernel", cv.t_linear),
+        (rf"{name}\.bias", f"{into}{name}/bias", cv.t_none))]
+
+
+def audio2mesh_rules() -> List[cv.Rule]:
+    """``convert_audio2mesh``'s rules: the encoder under ``audio_encoder.``
+    and the two heads."""
+    return wav2vec2_rules("audio_encoder.", "audio_encoder") + _head_rules("in_fn", "out_fn")
+
+
+def audio2pose_rules() -> List[cv.Rule]:
+    """``convert_audio2pose``'s rules.  The position table ``PPE.pe`` and
+    ``biased_mask`` are skipped (the model computes both).  The attentions'
+    packed ``in_proj`` has no single flax path: the JAX package keeps the
+    self attention's q, k, v apart (``self_q``/``self_k``/``self_v``) and of
+    the cross attention only the value (``cross_v``); ``from_jax`` packs
+    them under the paths ``self_in_proj`` and ``cross_in_proj`` named here."""
+    layer = r"transformer_decoder\.layers\.(\d+)\."
+    out = r"decoder/layer_\1/"
+    rules = wav2vec2_rules("audio_encoder.", "audio_encoder") + _head_rules("in_fn") + [
+        *_head_rules("pose_map", "pose_map_r", into="decoder/"),
+        (r"id_embed\.weight", "id_embed/embedding", cv.t_none),
+        (r"biased_mask", "skip", cv.t_none),
+        (r"PPE\.pe", "skip", cv.t_none),
+    ]
+    for attn, name in (("self_attn", "self"), ("multihead_attn", "cross")):
+        rules += [
+            (layer + attn + r"\.in_proj_weight", out + name + "_in_proj/kernel", cv.t_linear),
+            (layer + attn + r"\.in_proj_bias", out + name + "_in_proj/bias", cv.t_none),
+            (layer + attn + r"\.out_proj\.weight", out + name + "_out/kernel", cv.t_linear),
+            (layer + attn + r"\.out_proj\.bias", out + name + "_out/bias", cv.t_none),
+        ]
+    for lin in ("linear1", "linear2"):
+        rules += [(layer + lin + r"\.weight", out + lin + "/kernel", cv.t_linear),
+                  (layer + lin + r"\.bias", out + lin + "/bias", cv.t_none)]
+    for norm in ("norm1", "norm2", "norm3"):
+        rules += [(layer + norm + r"\.weight", out + norm + "/scale", cv.t_none),
+                  (layer + norm + r"\.bias", out + norm + "/bias", cv.t_none)]
+    return rules

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase train      # only the two training phases
     python3 chip_smoke.py --phase tok-ab     # guards, token-kernel A/B, K9 path
     python3 chip_smoke.py --phase entry      # the loader, pose2vid CLI and bench entries
+    python3 chip_smoke.py --phase audio      # the audio-driven path and its serving core
 
 Phases, each of which fails the run (nonzero exit) on any error:
 
@@ -84,6 +85,23 @@ Phases, each of which fails the run (nonzero exit) on any error:
    one JSON line; and the loader's weight path: tiny bf16 models written as
    the reference's files (``write_checkpoints``) and read back onto the card
    bit for bit.
+9. audio (``audio``, run after the entry points): K4 at wav2vec2-base's
+   self-attention (B=1, 12 heads, d=64, 1024 and 1800 frames) in float32
+   (the FMA form the audio models take) and bf16, held to its plain version
+   and timed as in phase 1; Audio2Mesh and Audio2Pose at full size (random
+   weights from seed 0), float32 with TF32 off, on the card against the CPU
+   on a 2.5-s seeded WAV read back through ``prepare_audio_feature``
+   (``AUDIO_REL_TOL``); a 40-s clip through Audio2Mesh, where K4 must
+   launch exactly once per encoder layer (12), on the card against the CPU;
+   ``generate_head_pose`` on a 10.0-s clip, timed; one serving request
+   through ``serving_core.animate`` with the models of
+   ``load_serving_models`` (``AUDIO_CONFIG``, random weights, full size):
+   48 frames at 512x512, 25 steps, CFG 3.5, bf16, on the fixture's pose maps
+   (the card cannot draw), K1-K4 held to ``attention_reckoning`` over the
+   window table; the bench in its own process at ``audio2mesh`` and
+   ``audio2vid --pose-maps fixture``; and tiny audio models written as the
+   reference's ``.pt`` files (weight norm un-merged, packed in_proj) and
+   read back onto the card bit for bit.
 
 The last line of standard output is the device summary JSON; the line before
 it lists the kernels.  Without a CUDA device the script exits nonzero.
@@ -146,6 +164,11 @@ SOURCES = {
            "aniportrait_tpu/ops/pallas_attention.py:1251"),
     "K9": ("ssa_packed", "aniportrait_tpu_torch/csrc/small_seq_attn_sm90.cu",
            "aniportrait_tpu/ops/pallas_attention.py:1847"),
+    # K4 in float32 at wav2vec2's self-attention (its FMA form): the audio
+    # phase's B=1 S=1800 H=12 d=64 row, launches from the 40-s clip
+    "K4.audio": ("flash_attention wav2vec2 float32 B=1 S=1800 H=12 d=64",
+                 "aniportrait_tpu_torch/csrc/flash_attn.cu",
+                 "aniportrait_tpu/ops/pallas_attention.py:294"),
 }
 # the kernels of the shared flash forward: bf16 runs its tensor-core form
 # (the source above), float32 its FMA form (csrc/flash_attn.cu); so do K5b
@@ -545,50 +568,61 @@ def kernel_phase(results: dict) -> None:
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         for c in kernel_cases(dtype):
-            kid, label = c["kid"], c["label"]
-            counters = tensor_core_counts()
-            got = c["run"]()
-            torch.cuda.synchronize()
-            form, ok_form = "", True
-            if kid in TENSOR_CORE:
-                which = TENSOR_CORE[kid]
-                tc = tensor_core_counts()[which] > counters[which]
-                ok_form = tc == (dtype == torch.bfloat16)
-                tc_name = "wgmma" if which in ("forward", "backward") else "mma.sync"
-                form = f" [{tc_name} bf16]" if tc else f" [FMA {name}]"
-            tiled = ""
-            if c["tiled"] is not None and dtype == torch.bfloat16:
-                out = got[0] if isinstance(got, tuple) else got
-                _, t_abs, t_rel, _ = _check(out, c["tiled"]().reshape(out.shape))
-                what = "exact softmax" if kid == "K3" else "tiled contract"
-                tiled = f" vs {what} max_abs_err={t_abs:.3e} rel_l2={t_rel:.3e}"
-            ref = c["plain"]()
-            ok, max_abs, rel_l2, bound = _check(got, ref)
-            ok &= ok_form
-            del got, ref
-            guard = ""
-            if c["guarded"] is not None:  # the fast path's output must stand
-                held = c["guarded"].last_guard.item() == 0
-                ok &= held
-                guard = f" guard {'held' if held else 'TRIPPED'}"
-            ms = _time_ms(c["run"], 5)
-            plain_ms = _time_ms(c["plain"], 2)
-            lib_ms = _time_ms(c["library"], 5)
-            bound_ms, bound_by = _bound(c["flops"], c["nbytes"], name)
-            log(f"[kernels] {kid}{form} {name} {label}: max_abs_err={max_abs:.3e} "
-                f"rel_l2={rel_l2:.3e} (tol {bound:.3g}/{TOLERANCE[name][1]:g}){tiled} "
-                f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms library {lib_ms:.3f} ms "
-                f"bound {bound_ms:.4f} ms ({bound_by}; {c['flops'] / 1e9:.1f} GFLOP, "
-                f"{c['nbytes'] / 1e6:.1f} MB){guard} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                failed.append(f"{kid} {name} {label}")
-            if kid not in results and name == "bfloat16":
-                results[kid] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                                    bound_ms=bound_ms, bound_by=bound_by,
-                                    library_ms=lib_ms)
+            row = _kernel_row(c, dtype, failed)
+            if c["kid"] not in results and name == "bfloat16":
+                results[c["kid"]] = row
         torch.cuda.empty_cache()
     if failed:
         raise SystemExit(f"kernel phase failed: {failed}")
+
+
+def _kernel_row(c: dict, dtype, failed: list) -> dict:
+    """One case of ``kernel_cases``: the kernel against its plain version
+    (and the form it ran), then the kernel, plain and library times and the
+    bound; prints its line, appends to ``failed`` where it fails, and
+    returns the line's numbers."""
+    import torch
+
+    name = str(dtype).split(".")[-1]
+    kid, label = c["kid"], c["label"]
+    counters = tensor_core_counts()
+    got = c["run"]()
+    torch.cuda.synchronize()
+    form, ok_form = "", True
+    if kid in TENSOR_CORE:
+        which = TENSOR_CORE[kid]
+        tc = tensor_core_counts()[which] > counters[which]
+        ok_form = tc == (dtype == torch.bfloat16)
+        tc_name = "wgmma" if which in ("forward", "backward") else "mma.sync"
+        form = f" [{tc_name} bf16]" if tc else f" [FMA {name}]"
+    tiled = ""
+    if c["tiled"] is not None and dtype == torch.bfloat16:
+        out = got[0] if isinstance(got, tuple) else got
+        _, t_abs, t_rel, _ = _check(out, c["tiled"]().reshape(out.shape))
+        what = "exact softmax" if kid == "K3" else "tiled contract"
+        tiled = f" vs {what} max_abs_err={t_abs:.3e} rel_l2={t_rel:.3e}"
+    ref = c["plain"]()
+    ok, max_abs, rel_l2, bound = _check(got, ref)
+    ok &= ok_form
+    del got, ref
+    guard = ""
+    if c["guarded"] is not None:  # the fast path's output must stand
+        held = c["guarded"].last_guard.item() == 0
+        ok &= held
+        guard = f" guard {'held' if held else 'TRIPPED'}"
+    ms = _time_ms(c["run"], 5)
+    plain_ms = _time_ms(c["plain"], 2)
+    lib_ms = _time_ms(c["library"], 5)
+    bound_ms, bound_by = _bound(c["flops"], c["nbytes"], name)
+    log(f"[kernels] {kid}{form} {name} {label}: max_abs_err={max_abs:.3e} "
+        f"rel_l2={rel_l2:.3e} (tol {bound:.3g}/{TOLERANCE[name][1]:g}){tiled} "
+        f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms library {lib_ms:.3f} ms "
+        f"bound {bound_ms:.4f} ms ({bound_by}; {c['flops'] / 1e9:.1f} GFLOP, "
+        f"{c['nbytes'] / 1e6:.1f} MB){guard} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append(f"{kid} {name} {label}")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms)
 
 
 # ---------------------------------------------------------------- reference
@@ -920,20 +954,26 @@ ENTRY_CONFIG = {
 ENTRY_BENCH_TIMEOUT = 600  # seconds for one bench subprocess
 
 
-def attention_reckoning(modules, height: int, width: int, frames: int,
-                        steps: int) -> dict:
-    """K1-K4 launches of one request of the whole-clip sampler with CFG
-    (``drop_mode="first_half"``), from the models' structure and
-    ``attention_route``: the ReferenceNet once on the 2 CFG rows of one
-    frame, the denoising UNet at each step (the unconditional half's self
-    attention without the bank, the conditional half's with it, the cross
-    attention over the one CLIP token), the PoseGuider's transformers once
-    on the clip, and the motion modules (``temporal_routes``)."""
+def attention_reckoning(modules, height: int, width: int, frames: int, steps: int,
+                        calls_per_step: int = 1, windows_per_call: int = 1,
+                        window_frames: int | None = None) -> dict:
+    """K1-K4 launches of one request with CFG (``drop_mode="first_half"``),
+    from the models' structure and ``attention_route``: the ReferenceNet once
+    on the 2 CFG rows of one frame, the denoising UNet ``calls_per_step``
+    times a step (the unconditional half's self attention without the bank,
+    the conditional half's with it, the cross attention over the one CLIP
+    token), the PoseGuider's transformers once on the clip, and the motion
+    modules (``temporal_routes``).  The whole-clip sampler makes one call a
+    step on the clip; the windowed one ``calls_per_step`` calls, each on
+    ``windows_per_call`` windows of ``window_frames`` frames."""
     from collections import Counter
 
     from aniportrait_tpu_torch.ops.attention import attention_route
 
     hlat, wlat = height // 8, width // 8
+    window_frames = window_frames or frames
+    call_frames = windows_per_call * window_frames
+    calls = steps * calls_per_step
     counts = Counter()
 
     def unet_levels(unet):
@@ -955,9 +995,9 @@ def attention_reckoning(modules, height: int, width: int, frames: int,
         counts[attention_route(2, s, s, h, d)] += 1
         counts[attention_route(2, s, 1, h, d)] += 1
     for s, h, d in unet_levels(modules.denoising_unet):
-        counts[attention_route(frames, s, s, h, d)] += steps
-        counts[attention_route(frames, s, s, h, d, bank=s)] += steps
-        counts[attention_route(2 * frames, s, 1, h, d)] += steps
+        counts[attention_route(call_frames, s, s, h, d)] += calls
+        counts[attention_route(call_frames, s, s, h, d, bank=s)] += calls
+        counts[attention_route(2 * call_frames, s, 1, h, d)] += calls
     pg = modules.pose_guider
     side = (height // 8, width // 8)
     for i in range(pg.num_stages):
@@ -967,8 +1007,9 @@ def attention_reckoning(modules, height: int, width: int, frames: int,
         h = block.attn1.heads
         s = side[0] * side[1]
         counts[attention_route(frames, s, s, h, block.attn1.to_q.out_features // h)] += 1
-    for _, _, route in temporal_routes(modules.denoising_unet, hlat, wlat, 2, frames):
-        counts[route] += steps
+    for _, _, route in temporal_routes(modules.denoising_unet, hlat, wlat,
+                                       2 * windows_per_call, window_frames):
+        counts[route] += calls
     return {kid: counts[kid] for kid in ("K1", "K2", "K3", "K4")}
 
 
@@ -1130,6 +1171,315 @@ def entry_phase() -> None:
         f"read back onto the card in {dt:.1f} s: {n - len(differ)} of {n} tensors bit-equal")
     if differ:
         raise SystemExit(f"entry: loaded weights differ from their source: {differ[:5]}")
+
+
+# -------------------------------------------------------------------- audio
+# configs/prompts/animation_audio.yaml with its inference_config
+# (inference_v2.yaml, as in ENTRY_CONFIG) and audio_inference_config
+# (configs/inference/inference_audio.yaml) in place of the paths, as a
+# literal: the card's machine may lack PyYAML.  tests/test_torch_serve.py
+# holds it equal to load_config of the three files.
+AUDIO_CONFIG = {
+    **{k: v for k, v in ENTRY_CONFIG.items() if k != "test_cases"},
+    "audio_inference_config": {
+        "a2m_model": {"out_dim": 1404, "latent_dim": 512,
+                      "model_path": "./pretrained_model/wav2vec2-base-960h",
+                      "only_last_fetures": True, "from_pretrained": True},
+        "a2p_model": {"out_dim": 6, "latent_dim": 512,
+                      "model_path": "./pretrained_model/wav2vec2-base-960h",
+                      "only_last_fetures": True, "from_pretrained": True},
+        "pretrained_model": {"a2m_ckpt": "./pretrained_model/audio2mesh.pt",
+                             "a2p_ckpt": "./pretrained_model/audio2pose.pt"},
+    },
+    "test_cases": {"./configs/inference/ref_images/lyl.png":
+                   ["./configs/inference/audio/lyl.wav"]},
+}
+# Audio2Mesh and Audio2Pose, float32 with TF32 off, card against CPU: every
+# output within this share of the CPU output's largest magnitude.  Both
+# sides accumulate in float32 and differ in summation order (cuBLAS and
+# cuDNN against the CPU's kernels, K4 against its plain version) through 12
+# encoder layers and, for the poses, an autoregressive decode that feeds
+# each frame back.
+AUDIO_REL_TOL = 1e-3
+AUDIO_LONG_SECONDS = 40  # 1200 frames at 30 fps: wav2vec2's attention takes K4
+# the encoder sizes of tests/test_audio_stack.py's tiny models
+TINY_WAV2VEC2 = dict(hidden=32, layers=2, heads=4, intermediate=64, pos_conv_kernel=16,
+                     pos_conv_groups=4, conv_layers=((16, 10, 5), (16, 3, 2)))
+
+
+def write_wav(path: str, seconds: float, seed: int, rate: int = 16000) -> str:
+    """Seeded 16-bit mono audio: noise under a 3 Hz envelope, so the
+    normalised signal has loud and quiet stretches."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    rs = np.random.RandomState(seed)
+    n = int(round(seconds * rate))
+    env = 0.5 + 0.4 * np.sin(2 * np.pi * 3.0 * np.arange(n) / rate + rs.uniform(0, 6))
+    wavfile.write(path, rate, (np.clip(0.1 * env * rs.randn(n), -1, 1) * 32767).astype(
+        np.int16))
+    return path
+
+
+def write_audio_checkpoints(a2m, a2p, root) -> dict:
+    """The reference's ``audio2mesh.pt`` and ``audio2pose.pt`` from the
+    models: the positional conv stored as ``weight_g`` / ``weight_v`` (the
+    weight norm of HF wav2vec2, ``weight_norm(dim=2)``: g the norm over the
+    kernel's first two dims), and in ``audio2pose.pt`` the ``PPE.pe`` and
+    ``biased_mask`` tensors the reference saves.  Each model's positional
+    conv is first set to the merge of what is written, so that reading the
+    files gives the model back bit for bit.  Returns the audio config's
+    ``pretrained_model`` entries."""
+    import os
+
+    import torch
+
+    from aniportrait_tpu_torch.weights.convert import merge_pos_conv_weight_norm
+
+    key = "audio_encoder.encoder.pos_conv_embed.conv"
+    paths = {}
+    for model, name, ckpt in ((a2m, "audio2mesh", "a2m_ckpt"), (a2p, "audio2pose", "a2p_ckpt")):
+        state = {k: v.detach().cpu().contiguous().clone()
+                 for k, v in model.state_dict().items()}
+        v = state.pop(f"{key}.weight")
+        g = v.norm(dim=(0, 1), keepdim=True)
+        merged = merge_pos_conv_weight_norm({f"{key}.weight_g": g, f"{key}.weight_v": v},
+                                            "audio_encoder.")[f"{key}.weight"]
+        with torch.no_grad():
+            model.audio_encoder.encoder.pos_conv_embed.conv.weight.copy_(
+                torch.from_numpy(merged))
+        state[f"{key}.weight_g"], state[f"{key}.weight_v"] = g, v
+        if name == "audio2pose":
+            d = model.in_fn.out_features
+            state["PPE.pe"] = torch.zeros(1, model.pe_max_len, d)
+            state["biased_mask"] = torch.zeros(model.heads, 16, 16)
+        paths[ckpt] = os.path.join(root, f"{name}.pt")
+        torch.save(state, paths[ckpt])
+    return paths
+
+
+def audio_kernel_cases(dtype):
+    """K4 at wav2vec2-base's self-attention, B=1, 12 heads, d=64: 1024
+    frames (the first length that takes K4, 34.1 s of audio at 30 fps) and
+    1800 (60 s; 28 tiles of 64 and 8 rows)."""
+    import torch
+
+    from aniportrait_tpu_torch.ops import kernels as K
+    from aniportrait_tpu_torch.ops.kernels import flash
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cases = []
+    for s in (1024, 1800):
+        q, k, v = (torch.randn(1, s, 12, 64, generator=g, device="cuda", dtype=dtype)
+                   for _ in range(3))
+        bkv = flash.wgmma_block_kv(64)
+        cases.append(dict(
+            kid="K4", label=f"wav2vec2 B=1 S={s} H=12 d=64", seq=s,
+            run=lambda q=q, k=k, v=v: K.flash_attention(q, k, v),
+            plain=lambda q=q, k=k, v=v: flash.plain_attention_bshd(q, k, v),
+            library=lambda q=q, k=k, v=v: _sdpa(q, k, v),
+            flops=4.0 * 12 * s * s * 64, nbytes=_nbytes(q, k, v, q), guarded=None,
+            tiled=lambda q=q, k=k, v=v: flash.plain_attention_tiled(q, k, v, bkv)))
+    return cases
+
+
+def _rel_err(got, want) -> tuple:
+    import numpy as np
+
+    scale = float(np.abs(want).max())
+    return float(np.abs(got - want).max()) / scale, scale
+
+
+def audio_phase(results: dict) -> None:
+    """The audio-driven path (ROADMAP M9, M10b) on the card: K4 at
+    wav2vec2's shapes; Audio2Mesh and Audio2Pose (full size, random weights
+    from seed 0) card against CPU on a 2.5-s seeded WAV read back through
+    ``prepare_audio_feature``, a 40-s clip through Audio2Mesh (K4 exactly
+    once per encoder layer) and a 10-s ``generate_head_pose`` (timed; ROADMAP
+    F7's case); one serving request through ``serving_core.animate`` from
+    ``load_serving_models`` (48 frames, 512x512, 25 steps, CFG 3.5, the
+    fixture's pose maps), K1-K4 held to the window table's reckoning; the
+    bench in its own process at ``audio2mesh`` and ``audio2vid --pose-maps
+    fixture``; and tiny audio checkpoints written as the reference's files
+    and read back bit for bit."""
+    import copy
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aniportrait_tpu_torch.config import Config
+    from aniportrait_tpu_torch.landmark.geometry import GeometrySolver, load_geometry_metadata
+    from aniportrait_tpu_torch.landmark.pipeline import DEFAULT_TASK
+    from aniportrait_tpu_torch.ops import kernels as K
+    from aniportrait_tpu_torch.ops.kernels import build
+    from aniportrait_tpu_torch.pipelines.context import uniform_context_windows
+    from aniportrait_tpu_torch.scripts import audio2vid, serving_core
+    from aniportrait_tpu_torch.scripts.loader import load_audio_models
+    from aniportrait_tpu_torch.utils.audio_util import normalize_audio, prepare_audio_feature
+
+    t_phase = time.perf_counter()
+    # float32 without TF32 (an earlier phase may have allowed it) for the
+    # plain versions and for the audio models, card and CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.library()
+    failed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in audio_kernel_cases(dtype):
+            row = _kernel_row(c, dtype, failed)
+            if dtype == torch.float32 and c["seq"] == 1800:
+                results["K4.audio"] = row
+    if failed:
+        raise SystemExit(f"audio phase: kernel rows failed: {failed}")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    tmp_dir = tempfile.TemporaryDirectory(dir=os.path.join(root, "build"))
+    tmp = tmp_dir.name
+    audio_cfg = Config(AUDIO_CONFIG["audio_inference_config"])
+
+    # card against CPU, float32, TF32 off
+    cpu = load_audio_models(audio_cfg, random_init=True, device="cpu")
+    card = tuple(copy.deepcopy(m).cuda() for m in cpu)
+    sample = prepare_audio_feature(write_wav(os.path.join(tmp, "a.wav"), 2.5, seed=10))
+    wav, seq_len = sample["audio_feature"], sample["seq_len"]
+    K.reset_launch_counts()
+    out = {}
+    for dev, (a2m, a2p) in (("cuda", card), ("cpu", cpu)):
+        out[dev] = (audio2vid.mesh_offsets(a2m, wav, seq_len),
+                    audio2vid.generate_head_pose(a2p, wav, seq_len, id_seed=7))
+    errs = [_rel_err(a, b) for a, b in zip(out["cuda"], out["cpu"])]
+    log(f"[audio] 2.5-s WAV ({len(wav)} samples, {seq_len} frames), float32, TF32 off, card "
+        f"vs CPU: mesh offsets {out['cuda'][0].shape} max err {errs[0][0]:.3e} of max "
+        f"|offset| {errs[0][1]:.3g}; head poses {out['cuda'][1].shape} max err "
+        f"{errs[1][0]:.3e} of max |pose| {errs[1][1]:.3g} (tol {AUDIO_REL_TOL:g}); kernel "
+        f"launches {K.launch_counts()}")
+    if (out["cuda"][0].shape != (seq_len, 468, 3) or out["cuda"][1].shape != (seq_len, 6)
+            or not all(e <= AUDIO_REL_TOL for e, _ in errs)):
+        raise SystemExit("audio: the card's audio models disagree with the CPU's")
+
+    # a 40-s clip through Audio2Mesh: wav2vec2's attention at 1200 frames
+    long_wav = normalize_audio(np.random.RandomState(11).randn(
+        16000 * AUDIO_LONG_SECONDS).astype(np.float32))
+    frames = 30 * AUDIO_LONG_SECONDS
+    a2m, a2p = card
+    audio2vid.mesh_offsets(a2m, long_wav[:16000], 30)  # warm-up below K4's length
+    tc = tensor_core_counts()["forward"]
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    offsets = audio2vid.mesh_offsets(a2m, long_wav, frames)
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    cpu_offsets = audio2vid.mesh_offsets(cpu[0], long_wav, frames)
+    err, scale = _rel_err(offsets, cpu_offsets)
+    layers = len(a2m.audio_encoder.encoder.layers)
+    log(f"[audio] {AUDIO_LONG_SECONDS}-s clip ({frames} frames) through Audio2Mesh on "
+        f"{gpu_line()}: {dt:.3f} s with upload and download; kernel launches {counts} "
+        f"(K4 on the FMA form: tensor-core launches {tensor_core_counts()['forward'] - tc}); "
+        f"vs CPU max err {err:.3e} of {scale:.3g}")
+    if (counts["K4"] != layers or sum(counts.values()) != layers
+            or tensor_core_counts()["forward"] != tc):
+        raise SystemExit(f"audio: the {frames}-frame clip launched {counts}, not K4 once "
+                         f"per each of {layers} layers")
+    if not np.isfinite(offsets).all() or err > AUDIO_REL_TOL:
+        raise SystemExit("audio: the long clip's offsets are not finite or off the CPU's")
+    results.setdefault("K4.audio", {})["launches"] = counts["K4"]
+
+    # the autoregressive decode: a 10.0-s clip, whose last chunk is full
+    ten = normalize_audio(np.random.RandomState(12).randn(160000).astype(np.float32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poses = audio2vid.generate_head_pose(a2p, ten, 300, id_seed=3)
+    dt = time.perf_counter() - t0
+    log(f"[audio] generate_head_pose on a 10.0-s clip (300 frames, two 5-s chunks merged "
+        f"into one decode): {dt:.3f} s, {dt / 300 * 1e3:.2f} ms a frame; poses "
+        f"{poses.shape}")
+    if poses.shape != (300, 6) or not np.isfinite(poses).all():
+        raise SystemExit(f"audio: generate_head_pose gave {poses.shape} for 300 frames")
+    del cpu, card, a2m, a2p, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one serving request through the audio2vid device function
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    res, steps, length = 512, 25, 48
+    t0 = time.perf_counter()
+    models = serving_core.load_serving_models(Config(AUDIO_CONFIG), random_init=True,
+                                              size="full", device="cuda")
+    torch.cuda.synchronize()
+    log(f"[audio] load_serving_models (random init, full size: pipeline bf16, audio "
+        f"models float32, cuda) in {time.perf_counter() - t0:.1f} s")
+    golden = np.load(os.path.join(root, "tests", "fixtures", "landmark_golden.npz"))
+    solver = GeometrySolver(load_geometry_metadata(DEFAULT_TASK))
+    face = dict(lmks=golden["solo_lmks"], trans_mat=golden["solo_trans_mat"],
+                lmks3d=solver.solve(golden["solo_lmks"], (res, res))["mesh"])
+    maps = [golden[f"{n}_pose"] for n in ("lyl", "solo", "Aragaki")]
+    ref = np.random.RandomState(301).randint(0, 255, (res, res, 3), np.uint8)
+    sample = prepare_audio_feature(write_wav(os.path.join(tmp, "b.wav"), length / 30, 13))
+    pipe = models.pipe
+    pipe.timer.totals.clear()
+    pipe.timer.counts.clear()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    video = serving_core.animate(models, sample, face, ref, golden["solo_pose"], size=res,
+                                 steps=steps, length=length, seed=0, pose_maps=maps)
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    n_win = len(uniform_context_windows(0, length, pipe.context_frames, pipe.context_stride,
+                                        pipe.context_overlap))
+    wb = min(pipe.window_batch, n_win)
+    want = attention_reckoning(pipe.m, res, res, length, steps, -(-n_win // wb), wb,
+                               pipe.context_frames)
+    phases = pipe.timer.summary()
+    audio_s = sum(phases[k]["total_s"] for k in ("audio2mesh", "audio2pose"))
+    log(f"[audio] serving request ({sample['seq_len']} frames of audio, {res}x{res}, "
+        f"{length} frames, {steps} steps, CFG 3.5, bf16; {n_win} windows of "
+        f"{pipe.context_frames}, window batch {wb}): {dt:.2f} s, {length / dt:.3f} "
+        f"frames/s, audio stack {audio_s:.3f} s; phases {pipe.timer.report()}; kernel "
+        f"launches {counts}, reckoned {want}")
+    if video.shape != (length, res, res, 3):
+        raise SystemExit(f"audio: video shape {video.shape}")
+    if not np.isfinite(video).all() or video.min() < 0 or video.max() > 1:
+        raise SystemExit("audio: video not finite in [0, 1]")
+    off = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+    if off:
+        raise SystemExit(f"audio: kernel launches (counted, reckoned) differ: {off}")
+    tensor_core_check("audio", ("forward", "temporal"))
+    for kid in ("K1", "K2", "K3", "K4"):
+        results.setdefault(kid, {}).setdefault("launches", counts[kid])
+    del models, pipe, video
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _entry_bench(["--config", "audio2mesh"])
+    _entry_bench(["--config", "audio2vid", "--pose-maps", "fixture"])
+
+    # the loader's weight path: tiny audio models written as the reference's
+    # files and read back onto the card
+    tiny = {**AUDIO_CONFIG["audio_inference_config"]}
+    tiny["a2m_model"] = {**tiny["a2m_model"], "latent_dim": 16}
+    tiny["a2p_model"] = {**tiny["a2p_model"], "latent_dim": 16}
+    src = load_audio_models(Config(tiny), random_init=True, device="cpu", seed=5,
+                            wav2vec2=TINY_WAV2VEC2)
+    paths = write_audio_checkpoints(*src, tmp)
+    t0 = time.perf_counter()
+    loaded = load_audio_models(Config({**tiny, "pretrained_model": paths}), device="cuda",
+                               wav2vec2=TINY_WAV2VEC2)
+    dt = time.perf_counter() - t0
+    differ = [f"{i}.{k}" for i, (a, b) in enumerate(zip(src, loaded))
+              for k, v in a.state_dict().items() if not torch.equal(v.cuda(), b.state_dict()[k])]
+    n = sum(len(m.state_dict()) for m in src)
+    log(f"[audio] loader: tiny audio models written as audio2mesh.pt / audio2pose.pt "
+        f"(weight_g / weight_v, packed in_proj, PPE.pe, biased_mask) and read back onto the "
+        f"card in {dt:.2f} s: {n - len(differ)} of {n} tensors bit-equal")
+    if differ:
+        raise SystemExit(f"audio: loaded weights differ from their source: {differ[:5]}")
+    tmp_dir.cleanup()
+    log(f"[audio] phase time {time.perf_counter() - t_phase:.1f} s")
 
 
 # ----------------------------------------------------------------- training
@@ -1471,7 +1821,7 @@ def folded_small_seq_phase(results: dict) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase", choices=("all", "kernels", "long-clip", "train", "tok-ab",
-                                            "entry"),
+                                            "entry", "audio"),
                         default="all")
     args = parser.parse_args()
 
@@ -1495,6 +1845,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     if args.phase in ("all", "entry"):
         entry_phase()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.phase in ("all", "audio"):
+        audio_phase(results)
         gc.collect()
         torch.cuda.empty_cache()
     if args.phase in ("all", "long-clip"):

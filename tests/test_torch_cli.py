@@ -11,8 +11,8 @@ of tests/test_torch_pipeline.py (latents 1e-3, frames one uint8 level).  ``-acc`
 
 The bench entry: ``--tiny`` prints exactly one JSON line with the four
 keys; without a card and without ``--tiny``/``--device cpu`` it fails and
-prints nothing; the configurations that wait for other modules raise with
-their ROADMAP item.
+prints nothing, also at the audio configurations; the configurations that
+wait for other modules raise with their ROADMAP item.
 """
 
 import json
@@ -211,7 +211,9 @@ def test_bench_without_a_card_fails_and_prints_nothing():
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert res.returncode != 0 and res.stdout == ""
     assert "no CUDA device" in res.stderr
-    for argv, item in ((["--config", "audio2mesh"], "M9"), (["--config", "audio2vid"], "M9"),
-                       (["--config", "audio2vid_acc"], "M8"), (["--quality", "a", "b"], "M13")):
+    for argv in (["--config", "audio2mesh"], ["--config", "audio2vid", "--pose-maps", "fixture"]):
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            port_bench.main(argv)
+    for argv, item in ((["--config", "audio2vid_acc"], "M8"), (["--quality", "a", "b"], "M13")):
         with pytest.raises(NotImplementedError, match=item):
             port_bench.main(argv)

@@ -3,7 +3,8 @@ originals: the weight-naming rules (weights/convert.py) key for key and
 transform for transform, in order; the context-window tables
 (pipelines/context.py) entry for entry; and the entry points' host front
 end (config, the quality gate, the landmark graph, pose math and
-retargeting, the pose drawing, the IO helpers) output for output."""
+retargeting, the pose drawing, the IO helpers, the audio loading) output for
+output; and the audio weight rules' conversions tree for tree."""
 
 import zipfile
 from pathlib import Path
@@ -17,6 +18,7 @@ from aniportrait_tpu.landmark import blazeface as jax_blazeface
 from aniportrait_tpu.landmark import geometry as jax_geometry
 from aniportrait_tpu.landmark import pipeline as jax_landmark
 from aniportrait_tpu.pipelines import context as jax_context
+from aniportrait_tpu.utils import audio_util as jax_audio
 from aniportrait_tpu.utils import draw_util as jax_draw
 from aniportrait_tpu.utils import mp_utils as jax_mp
 from aniportrait_tpu.utils import pose_util as jax_pose
@@ -29,6 +31,7 @@ from aniportrait_tpu_torch.landmark import blazeface as port_blazeface
 from aniportrait_tpu_torch.landmark import geometry as port_geometry
 from aniportrait_tpu_torch.landmark import pipeline as port_landmark
 from aniportrait_tpu_torch.pipelines import context as port_context
+from aniportrait_tpu_torch.utils import audio_util as port_audio
 from aniportrait_tpu_torch.scripts.vid2vid import (
     retarget_pose_and_expression as port_retarget,
 )
@@ -51,6 +54,7 @@ RULE_LISTS = [
     ("_attention_block_rules", (r"down_blocks\.0\.attentions\.1", "attn_down_0_1")),
     ("_resnet_rules", (r"mid_block\.resnets\.0", "mid_resnet_0")),
     ("_motion_rules", (r"up_blocks\.1\.motion_modules\.2", "up_1_motion_2")),
+    ("wav2vec2_rules", ("audio_encoder.",)),
 ]
 
 
@@ -86,6 +90,106 @@ def test_transforms_and_apply_rules_equal_the_originals():
                                   j_params["stem_0"]["conv"]["kernel"])
     np.testing.assert_array_equal(p_stats["stem_0"]["bn"]["mean"],
                                   j_stats["stem_0"]["bn"]["mean"])
+
+
+def _tree_equal(a, b):
+    assert a.keys() == b.keys()
+    for key in a:
+        if isinstance(a[key], dict):
+            _tree_equal(a[key], b[key])
+        else:
+            np.testing.assert_array_equal(a[key], b[key])
+
+
+def _audio_state(model, parametrized=False):
+    """A model's state dict as the reference's files hold it: the
+    positional conv's weight norm un-merged (``weight_g``/``weight_v``, or
+    the newer ``parametrizations.weight.original0/1``), with the tensors a
+    rule skips and one no rule takes."""
+    import torch
+
+    rs = np.random.RandomState(9)
+    state = {k: torch.from_numpy(rs.randn(*v.shape).astype(np.float32))
+             for k, v in model.state_dict().items()}
+    base = "audio_encoder.encoder.pos_conv_embed.conv"
+    w = state.pop(f"{base}.weight")
+    g, v = w.norm(dim=(0, 1), keepdim=True), w
+    if parametrized:
+        state[f"{base}.parametrizations.weight.original0"] = g
+        state[f"{base}.parametrizations.weight.original1"] = v
+    else:
+        state[f"{base}.weight_g"], state[f"{base}.weight_v"] = g, v
+    state["audio_encoder.masked_spec_embed"] = torch.zeros(w.shape[0])
+    state["not_a_key"] = torch.zeros(1)
+    return state
+
+
+@pytest.mark.parametrize("parametrized", [False, True], ids=["weight_g", "original0"])
+def test_audio_conversions_equal_the_originals(parametrized):
+    """``convert_audio2mesh``, ``convert_audio2pose`` (with ``PPE.pe`` and
+    ``biased_mask``), ``convert_wav2vec2`` and ``merge_pos_conv_weight_norm``
+    of the port and of the JAX package on the same seeded state dicts."""
+    import torch
+
+    from aniportrait_tpu_torch.audio.audio2mesh import Audio2MeshModel
+    from aniportrait_tpu_torch.audio.audio2pose import Audio2PoseModel
+
+    tiny = dict(hidden=32, layers=2, heads=4, intermediate=64, pos_conv_kernel=16,
+                pos_conv_groups=4, conv_layers=((16, 10, 5), (16, 3, 2)))
+    mesh = _audio_state(Audio2MeshModel(latent_dim=16, wav2vec2=tiny), parametrized)
+    pose = _audio_state(Audio2PoseModel(latent_dim=16, wav2vec2=tiny), parametrized)
+    pose["PPE.pe"], pose["biased_mask"] = torch.zeros(1, 600, 16), torch.zeros(8, 4, 4)
+    for fn, state in (("convert_audio2mesh", mesh), ("convert_audio2pose", pose)):
+        p_params, p_unused = getattr(port_convert, fn)(state)
+        j_params, j_unused = getattr(jax_convert, fn)(state)
+        assert p_unused == j_unused == ["not_a_key"]
+        _tree_equal(p_params, j_params)
+    encoder = {k[len("audio_encoder."):]: v for k, v in mesh.items()
+               if k.startswith("audio_encoder.")}
+    p_params, p_unused = port_convert.convert_wav2vec2(encoder)
+    j_params, j_unused = jax_convert.convert_wav2vec2(encoder)
+    assert p_unused == j_unused == []
+    _tree_equal(p_params, j_params)
+    merged = port_convert.merge_pos_conv_weight_norm(mesh, "audio_encoder.")
+    _tree_equal(merged, jax_convert.merge_pos_conv_weight_norm(mesh, "audio_encoder."))
+    assert "audio_encoder.encoder.pos_conv_embed.conv.weight" in merged
+    for part in range(3):
+        np.testing.assert_array_equal(
+            port_convert._split_in_proj(pose, "transformer_decoder.layers.1.self_attn")[0][part],
+            jax_convert._split_in_proj(pose, "transformer_decoder.layers.1.self_attn")[0][part])
+
+
+def test_audio_util_equals_the_original(tmp_path):
+    """WAV decoding (int16 stereo at 22.05 kHz, resampled; int32; uint8;
+    float32), the normalisation and ``prepare_audio_feature``; a file that is
+    no WAV needs ffmpeg."""
+    import shutil
+
+    from scipy.io import wavfile
+
+    rs = np.random.RandomState(10)
+    files = {
+        "s16_stereo.wav": (22050, (rs.randn(5000, 2) * 6000).astype(np.int16)),
+        "s32.wav": (16000, (rs.randn(4000) * 2e8).astype(np.int32)),
+        "u8.wav": (8000, rs.randint(0, 255, 3000).astype(np.uint8)),
+        "f32.wav": (16000, (0.1 * rs.randn(4321)).astype(np.float32)),
+    }
+    for name, (rate, data) in files.items():
+        path = str(tmp_path / name)
+        wavfile.write(path, rate, data)
+        a, b = port_audio.load_audio(path), jax_audio.load_audio(path)
+        assert a.dtype == b.dtype == np.float32 and a.ndim == 1
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(port_audio.normalize_audio(a), jax_audio.normalize_audio(b))
+        pa, pb = port_audio.prepare_audio_feature(path), jax_audio.prepare_audio_feature(path)
+        assert pa["seq_len"] == pb["seq_len"]
+        np.testing.assert_array_equal(pa["audio_feature"], pb["audio_feature"])
+    assert port_audio.prepare_audio_feature(str(tmp_path / "f32.wav"), fps=25)["seq_len"] == 7
+    if shutil.which("ffmpeg") is None:
+        (tmp_path / "a.mp3").write_bytes(b"ID3 not audio")
+        for mod in (port_audio, jax_audio):
+            with pytest.raises(RuntimeError, match="ffmpeg"):
+                mod.load_audio(str(tmp_path / "a.mp3"))
 
 
 @pytest.mark.parametrize("length,frames,stride,overlap",

@@ -486,3 +486,56 @@ def test_wrappers_reject_what_the_kernels_do_not_take(rand):
         K.ssa_packed(t, t, t, 48)
     with pytest.raises(ValueError):  # K9: n_valid_rows > T
         K.ssa_packed(t, t, t, 16, 129)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1024, 1800])
+def test_flash_at_wav2vec2_shapes(rand, dtype, s):
+    """K4 at wav2vec2-base's self-attention (B=1, 12 heads, d=64): 1024
+    frames, the first that take K4, and 1800 (60 s of audio; a ragged last
+    tile), through the model's dispatch; float32 runs the FMA form, bf16 the
+    tensor cores and also meets the tiled rounding contract."""
+    from aniportrait_tpu_torch.ops.attention import scaled_dot_product_attention
+
+    q, k, v = (rand(dtype, 1, s, 12, 64) for _ in range(3))
+    before, tc = K.launch_counts()["K4"], flash.tensor_core_launches
+    got = scaled_dot_product_attention(q, k, v)
+    assert K.launch_counts()["K4"] == before + 1
+    assert (flash.tensor_core_launches > tc) == (dtype == torch.bfloat16)
+    torch.testing.assert_close(got, flash.plain_attention_bshd(q, k, v), **TOL[dtype])
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(
+            got, flash.plain_attention_tiled(q, k, v, flash.wgmma_block_kv(64)), **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_audio_models_match_cpu(rand):
+    """Tiny Audio2Mesh and Audio2Pose, float32 with TF32 off, on the card
+    against the CPU; 1100 frames, so the encoder's attention takes K4."""
+    from aniportrait_tpu_torch.audio.audio2mesh import Audio2MeshModel
+    from aniportrait_tpu_torch.audio.audio2pose import Audio2PoseModel
+
+    tiny = dict(hidden=48, layers=2, heads=4, intermediate=64, pos_conv_kernel=16,
+                pos_conv_groups=4, conv_layers=((16, 10, 5), (16, 3, 2)))
+    torch.manual_seed(0)
+    a2m = Audio2MeshModel(latent_dim=16, wav2vec2=tiny).eval()
+    torch.nn.init.normal_(a2m.out_fn.weight, std=0.3)
+    a2p = Audio2PoseModel(latent_dim=16, wav2vec2=tiny).eval()
+    wav = torch.randn(1, 16000 * 2)
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = a2m(wav, 1100), a2p(wav[:, :8000], 40, torch.tensor([5]))
+            before = K.launch_counts()["K4"]
+            got = (copy.deepcopy(a2m).cuda()(wav.cuda(), 1100).cpu(),
+                   copy.deepcopy(a2p).cuda()(wav[:, :8000].cuda(), 40,
+                                             torch.tensor([5], device="cuda")).cpu())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    assert K.launch_counts()["K4"] == before + 2
+    for g, w in zip(got, want):
+        scale = w.abs().max().item()
+        assert scale > 1e-3
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)

@@ -3,7 +3,8 @@ interpreter imports every module of aniportrait_tpu_torch, and neither jax,
 flax, aniportrait_tpu, the root scripts package nor the root bench.py (or
 any module under them) is in sys.modules.  The GPU smoke's path (factory,
 pipeline, kernels, a whole-clip generation; the loader and the pose2vid
-CLI's generation) loads none of them either."""
+CLI's generation; the audio models, the audio loader and the serving core's
+request on arrays) loads none of them either."""
 
 import pkgutil
 import subprocess
@@ -23,7 +24,8 @@ def test_port_imports_no_jax():
         m.name for m in pkgutil.walk_packages(aniportrait_tpu_torch.__path__,
                                               "aniportrait_tpu_torch.")
     )
-    assert "aniportrait_tpu_torch.pipelines.pose2vid" in names
+    assert {"aniportrait_tpu_torch.pipelines.pose2vid", "aniportrait_tpu_torch.audio.wav2vec2",
+            "aniportrait_tpu_torch.scripts.serve", "aniportrait_tpu_torch.scripts.app"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -54,6 +56,18 @@ def test_smoke_path_loads_nothing_of_the_jax_package():
         "case = dict(ref_image=img, pose_images=[img, img], kw=dict(video_length=2))\n"
         "(_, grid), = pose2vid.generate(pipe, [case], args)\n"
         "assert grid.shape == (3, 2, 64, 64, 3), grid.shape\n"
+        "from aniportrait_tpu_torch.scripts import app, audio2vid, serve, serving_core\n"
+        "audio = {**chip_smoke.AUDIO_CONFIG['audio_inference_config']}\n"
+        "for k in ('a2m_model', 'a2p_model'):\n"
+        "    audio[k] = {**audio[k], 'latent_dim': 16}\n"
+        "a2m, a2p = loader.load_audio_models(Config(audio), random_init=True, device='cpu',\n"
+        "                                    wav2vec2=chip_smoke.TINY_WAV2VEC2)\n"
+        "models = serving_core.ServingModels(pipe=pipe, a2m=a2m, a2p=a2p)\n"
+        "face = dict(lmks3d=np.zeros((468, 3)), trans_mat=np.eye(4))\n"
+        "sample = dict(audio_feature=rs.randn(3200).astype(np.float32), seq_len=6)\n"
+        "video = serving_core.animate(models, sample, face, img, None, size=64, steps=1,\n"
+        "                             length=2, seed=0, pose_maps=[img])\n"
+        "assert video.shape == (2, 64, 64, 3), video.shape\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {REFUSED!r})\n"
         "assert not bad, bad\n"
     )
