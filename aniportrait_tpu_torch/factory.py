@@ -145,20 +145,59 @@ def build_models(size: str = "full", device="cuda", dtype=torch.float32, seed: i
     )
 
 
+# ``configs/inference/inference_v2.yaml``'s ``unet_additional_kwargs`` as
+# ``AniUNet`` arguments: the denoising UNet of stage-2 training
+# (``configs/train/stage2.yaml``'s ``inference_config``); the rest of that
+# block is the class's defaults (motion modules at every resolution, 8 heads,
+# one transformer block of two temporal self attentions)
+INFERENCE_V2_UNET = dict(use_inflated_groupnorm=True, motion_module_mid_block=True,
+                         motion_module_resolutions=(1, 2, 4, 8), motion_pe_max_len=32)
+
+
 def build_training_models(size: str = "full", device="cuda", seed: int = 0,
                           frozen_dtype=torch.bfloat16,
-                          scheduler_kwargs: Dict[str, Any] | None = None
+                          scheduler_kwargs: Dict[str, Any] | None = None,
+                          stage: int = 1, gradient_checkpointing: bool = False,
+                          unet_overrides: Dict[str, Any] | None = None
                           ) -> PipelineModules:
-    """The five models of stage-1 training on ``device``, weights drawn
-    from ``seed``: ReferenceNet, the denoising UNet without motion modules
-    and the PoseGuider in float32 (the trainables' master weights), VAE and
-    CLIP in ``frozen_dtype``, eval mode and no gradients.  Which parameters
-    train is set by ``train.train_step.apply_freeze``."""
+    """The five models of stage-``stage`` training on ``device``, weights
+    drawn from ``seed``, eval mode and no gradients (which parameters train
+    is set by ``train.train_step.apply_freeze``).  The trainables' master
+    weights are float32 and the frozen weights are stored in
+    ``frozen_dtype``, as ``cast_frozen_to_bf16`` does
+    (``aniportrait_tpu/train/train_step.py:78-93``; BatchNorm stays float32):
+
+    * stage 1: ReferenceNet, the denoising UNet without motion modules and
+      the PoseGuider train; VAE and CLIP are frozen.
+    * stage 2: the denoising UNet with motion modules (``unet_overrides``,
+      default :data:`INFERENCE_V2_UNET`); only its motion modules train, and
+      the ReferenceNet, the rest of the denoising UNet, the PoseGuider, VAE
+      and CLIP are frozen.
+
+    ``gradient_checkpointing`` is set on both UNets."""
+    if stage not in (1, 2):
+        raise ValueError(f"stage={stage}")
+    overrides = unet_overrides if unet_overrides is not None else (
+        INFERENCE_V2_UNET if stage == 2 else None)
     modules = build_models(size, device, torch.float32, seed,
-                           use_motion_module=False,
-                           scheduler_kwargs=scheduler_kwargs)
-    cast(modules.vae, frozen_dtype)
-    cast(modules.clip, frozen_dtype)
+                           use_motion_module=stage == 2,
+                           scheduler_kwargs=scheduler_kwargs,
+                           unet_overrides=overrides)
+    frozen = [modules.vae, modules.clip]
+    if stage == 2:
+        frozen += [modules.reference_unet, modules.pose_guider]
+        for name, mod in modules.denoising_unet.named_children():
+            if name not in ("down_blocks", "mid_block", "up_blocks"):
+                cast(mod, frozen_dtype)
+        for blk in [*modules.denoising_unet.down_blocks, modules.denoising_unet.mid_block,
+                    *modules.denoising_unet.up_blocks]:
+            for name, mod in blk.named_children():
+                if name != "motion_modules":
+                    cast(mod, frozen_dtype)
+    for model in frozen:
+        cast(model, frozen_dtype)
+    for unet in (modules.reference_unet, modules.denoising_unet):
+        unet.gradient_checkpointing = gradient_checkpointing
     return modules
 
 

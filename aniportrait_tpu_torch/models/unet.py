@@ -9,6 +9,14 @@ One class in two roles, as in the JAX package:
 * denoising UNet: reads the banks, adds the pose features after conv_in and
   after each down block, and runs the motion modules.
 
+With ``gradient_checkpointing`` set, each resnet, spatial transformer and
+motion module call that runs with gradients enabled goes through
+``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
+after the forward and recomputed in the backward, the counterpart of the JAX
+package's ``nn.remat`` of the same three blocks
+(``aniportrait_tpu/models/unet.py:63-72,130-138``).  A recomputed block runs
+its attention kernels a second time.
+
 Module names follow the reference torch checkpoints (``down_blocks.i.
 resnets.j``, ``...attentions.j``, ``...motion_modules.j``, ``mid_block``,
 ``up_blocks``, ``conv_norm_out``, ``conv_out``).  Video tensors are
@@ -22,6 +30,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from aniportrait_tpu_torch.models.embeddings import TimestepEmbedding, timestep_embedding
 from aniportrait_tpu_torch.models.motion_module import MotionModule
@@ -53,6 +62,7 @@ class AniUNet(nn.Module):
         n = len(ch)
         self.layers_per_block = layers_per_block
         self.motion_pe_max_len = motion_pe_max_len
+        self.gradient_checkpointing = False
         temb = ch[0] * 4
 
         def resnet(c_in, c_out):
@@ -120,6 +130,13 @@ class AniUNet(nn.Module):
         else:
             self.conv_norm_out = self.conv_out = None
 
+    def _run(self, block: nn.Module, *args):
+        """``block(*args)``, through ``checkpoint`` when gradient
+        checkpointing is on and gradients are being recorded."""
+        if self.gradient_checkpointing and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     def forward(self, sample, timesteps, encoder_hidden_states,
                 pose_cond_fea: Optional[List[torch.Tensor]] = None,
                 ref_banks: Optional[Dict[str, torch.Tensor]] = None,
@@ -153,8 +170,8 @@ class AniUNet(nn.Module):
             return x.reshape(b * f, *x.shape[2:])
 
         def spatial(attn, x, key):
-            x, captured = attn(
-                x, f, encoder_hidden_states,
+            x, captured = self._run(
+                attn, x, f, encoder_hidden_states,
                 None if ref_banks is None else ref_banks.get(key),
                 capture_banks, drop_mode, drop_ref,
             )
@@ -176,11 +193,11 @@ class AniUNet(nn.Module):
 
         for i, blk in enumerate(self.up_blocks):
             for j in range(self.layers_per_block + 1):
-                x = blk.resnets[j](torch.cat([x, stack.pop()], dim=1), emb, f)
+                x = self._run(blk.resnets[j], torch.cat([x, stack.pop()], dim=1), emb, f)
                 if hasattr(blk, "attentions"):
                     x = spatial(blk.attentions[j], x, f"up_{i}_{j}")
                 if hasattr(blk, "motion_modules"):
-                    x = blk.motion_modules[j](x, f, motion_windows)
+                    x = self._run(blk.motion_modules[j], x, f, motion_windows)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
 
@@ -198,11 +215,11 @@ class AniUNet(nn.Module):
         stack = [x]
         for i, blk in enumerate(self.down_blocks):
             for j in range(self.layers_per_block):
-                x = blk.resnets[j](x, emb, f)
+                x = self._run(blk.resnets[j], x, emb, f)
                 if hasattr(blk, "attentions"):
                     x = spatial(blk.attentions[j], x, f"down_{i}_{j}")
                 if hasattr(blk, "motion_modules"):
-                    x = blk.motion_modules[j](x, f, motion_windows)
+                    x = self._run(blk.motion_modules[j], x, f, motion_windows)
                 stack.append(x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
@@ -211,8 +228,8 @@ class AniUNet(nn.Module):
                 x = x + fold(pose_cond_fea[i + 1])
 
         mid = self.mid_block
-        x = mid.resnets[0](x, emb, f)
+        x = self._run(mid.resnets[0], x, emb, f)
         x = spatial(mid.attentions[0], x, "mid_0")
         if hasattr(mid, "motion_modules"):
-            x = mid.motion_modules[0](x, f, motion_windows)
-        return mid.resnets[1](x, emb, f), stack
+            x = self._run(mid.motion_modules[0], x, f, motion_windows)
+        return self._run(mid.resnets[1], x, emb, f), stack

@@ -12,7 +12,8 @@ custom VJP of ``aniportrait_tpu/ops/pallas_attention.py``.
   and sums the bank's gradients over the ``rep`` rows that share it.
 * :class:`NatTemporal` (``nat_packed``, :2134-2156): K3 forward; the
   backward is autograd of the plain version, as the JAX backward is the XLA
-  core and not a Pallas kernel.
+  core and not a Pallas kernel.  It runs inside the profiler range
+  :data:`K3_BACKWARD`, so a profile can tell its device time apart.
 * :class:`CtgPacked` (``ctg_packed``, :2194-2215): K6 forward; the backward
   is autograd of the plain version, as ``_ctg_bwd`` is the XLA core's VJP.
 * :class:`SsaPacked` (``ssa_packed``, :2252-2271): K9 forward; the backward
@@ -27,6 +28,8 @@ from __future__ import annotations
 import torch
 
 from aniportrait_tpu_torch.ops.kernels import flash, small_seq, temporal
+
+K3_BACKWARD = "K3 plain backward"
 
 
 def _needs_grad(ctx, n: int) -> bool:
@@ -122,10 +125,12 @@ class NatTemporal(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = temporal.plain_nat_temporal(*inputs, *ctx.args)
-        return (*torch.autograd.grad(out, inputs, g), None, None, None)
+        with torch.profiler.record_function(K3_BACKWARD):
+            inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+            with torch.enable_grad():
+                out = temporal.plain_nat_temporal(*inputs, *ctx.args)
+            grads = torch.autograd.grad(out, inputs, g)
+        return (*grads, None, None, None)
 
 
 class CtgPacked(torch.autograd.Function):

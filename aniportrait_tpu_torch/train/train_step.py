@@ -1,4 +1,5 @@
-"""Stage-1 training step (port of ``aniportrait_tpu/train/train_step.py``).
+"""Training step of stage 1 and stage 2 (port of
+``aniportrait_tpu/train/train_step.py``).
 
 The math of the JAX ``make_train_step`` (its lines 186-265), which follows
 the reference ``train_stage_1.py``:
@@ -12,7 +13,16 @@ the reference ``train_stage_1.py``:
 * AdamW over the trainable set only, after clipping by the global norm.
 
 Stage 1 trains the ReferenceNet (less ``up_blocks.3``), the denoising UNet
-and the PoseGuider; VAE and CLIP are frozen and get no gradients.
+and the PoseGuider; VAE and CLIP are frozen and get no gradients.  Stage 2
+trains the denoising UNet's motion modules only (``freeze_mask_stage2``).
+A model none of whose weights train (stage 2's ReferenceNet and PoseGuider)
+runs without recording gradients; the PoseGuider still runs in train mode,
+so its BatchNorm statistics update at both stages, as in the JAX step.
+
+With ``accumulation_steps`` k > 1 each call is one micro-step: its loss's
+gradient, divided by k, adds into the trainables' ``.grad``, and only the
+k-th micro-step clips and steps the optimizer, which applies the mean
+gradient of the k batches, as ``optax.MultiSteps`` does.
 
 ``loss_fn`` takes its random draws as explicit tensors (:class:`Draws`), so a
 test can hand it the JAX draws; without them it draws from a
@@ -53,10 +63,27 @@ def freeze_mask_stage1(modules: PipelineModules) -> Dict[str, bool]:
     return mask
 
 
-def apply_freeze(modules: PipelineModules) -> Dict[str, torch.nn.Parameter]:
-    """Set ``requires_grad`` by :func:`freeze_mask_stage1`; return the
+def freeze_mask_stage2(modules: PipelineModules) -> Dict[str, bool]:
+    """``{'model.param': frozen}``: only the denoising UNet's motion modules
+    train (the JAX ``_freeze_mask_stage2``, train_step.py:62-75; the
+    reference's train_stage_2.py:345-356)."""
+    return {f"{model}.{name}": not (model == "denoising_unet"
+                                    and ".motion_modules." in name)
+            for model, module in modules.models().items()
+            for name, _ in module.named_parameters()}
+
+
+def freeze_mask(modules: PipelineModules, stage: int) -> Dict[str, bool]:
+    if stage not in (1, 2):
+        raise ValueError(f"stage={stage}")
+    return (freeze_mask_stage1 if stage == 1 else freeze_mask_stage2)(modules)
+
+
+def apply_freeze(modules: PipelineModules, stage: int = 1
+                 ) -> Dict[str, torch.nn.Parameter]:
+    """Set ``requires_grad`` by the stage's freeze mask; return the
     trainable parameters by qualified name."""
-    mask = freeze_mask_stage1(modules)
+    mask = freeze_mask(modules, stage)
     trainable = {}
     for model, module in modules.models().items():
         for name, p in module.named_parameters():
@@ -100,8 +127,11 @@ class Draws:
 
 
 def _nchw(x):
-    """(..., H, W, C) channels-last -> (..., C, H, W)."""
-    return x.movedim(-1, -3)
+    """(..., H, W, C) channels-last -> contiguous (..., C, H, W).  A
+    channels-last-strided view would carry the convolutions' channels-last
+    layout into every activation, and PyTorch 2.13's CPU backward of the
+    denoising UNet with motion modules crashes on that layout."""
+    return x.movedim(-1, -3).contiguous()
 
 
 @torch.no_grad()
@@ -111,12 +141,16 @@ def vae_sample(vae, img, eps):
     return (mean.float() + torch.exp(0.5 * logvar.float()) * eps) * VAE_SCALE
 
 
+def _trains(model: torch.nn.Module) -> bool:
+    return torch.is_grad_enabled() and any(p.requires_grad for p in model.parameters())
+
+
 def loss_fn(modules: PipelineModules, batch: Dict[str, torch.Tensor], *,
             prediction_type: str = "v_prediction", snr_gamma: float = 5.0,
             noise_offset: float = 0.05, uncond_ratio: float = 0.1,
             draws: Optional[Draws] = None,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """The stage-1 loss of one batch.  The PoseGuider runs in train mode
+    """The loss of one batch (either stage).  The PoseGuider runs in train mode
     (its BatchNorm statistics update in place); the caller picks the compute
     dtype (``torch.autocast``).  ``draws``: the step's random draws, else
     drawn from ``generator``."""
@@ -152,9 +186,11 @@ def loss_fn(modules: PipelineModules, batch: Dict[str, torch.Tensor], *,
     else:
         raise ValueError(prediction_type)
 
-    pose_fea = m.pose_guider(_nchw(batch["pixel_values_pose"]))
-    _, banks = m.reference_unet(ref_latents[:, None], torch.zeros_like(t), ctx,
-                                capture_banks=True)
+    with torch.set_grad_enabled(_trains(m.pose_guider)):
+        pose_fea = m.pose_guider(_nchw(batch["pixel_values_pose"]))
+    with torch.set_grad_enabled(_trains(m.reference_unet)):
+        _, banks = m.reference_unet(ref_latents[:, None], torch.zeros_like(t), ctx,
+                                    capture_banks=True)
     pred, _ = m.denoising_unet(noisy, t, ctx, pose_cond_fea=pose_fea,
                                ref_banks=banks, drop_mode="traced",
                                drop_ref=draws.uncond.expand(b))
@@ -171,12 +207,20 @@ def loss_fn(modules: PipelineModules, batch: Dict[str, torch.Tensor], *,
 
 def make_optimizer(trainable: Dict[str, torch.nn.Parameter],
                    learning_rate: float = 1e-5, weight_decay: float = 1e-2,
-                   betas=(0.9, 0.999), eps: float = 1e-8) -> torch.optim.AdamW:
-    """AdamW over the trainable set only, float32 states (the JAX package's
-    fp32 path, ``optax.adamw``: decoupled decay on the old weight, the same
-    bias-corrected update)."""
-    return torch.optim.AdamW(list(trainable.values()), lr=learning_rate,
-                             betas=betas, eps=eps, weight_decay=weight_decay)
+                   betas=(0.9, 0.999), eps: float = 1e-8,
+                   adam_8bit: bool = False) -> torch.optim.Optimizer:
+    """AdamW over the trainable set only (the JAX ``make_optimizer``): with
+    float32 states, ``optax.adamw``'s math (decoupled decay on the old
+    weight, the same bias-corrected update); with ``adam_8bit`` the
+    block-quantised int8 moments of ``train/optim8bit.py``."""
+    params = list(trainable.values())
+    if adam_8bit:
+        from aniportrait_tpu_torch.train.optim8bit import AdamW8bit
+
+        return AdamW8bit(params, lr=learning_rate, betas=betas, eps=eps,
+                         weight_decay=weight_decay)
+    return torch.optim.AdamW(params, lr=learning_rate, betas=betas, eps=eps,
+                             weight_decay=weight_decay)
 
 
 @torch.no_grad()
@@ -197,20 +241,27 @@ def train_step(modules: PipelineModules, optimizer: torch.optim.Optimizer,
                compute_dtype: torch.dtype = torch.float32,
                max_grad_norm: float = 1.0, draws: Optional[Draws] = None,
                generator: Optional[torch.Generator] = None,
+               accumulation_steps: int = 1, micro_step: int = 0,
                **loss_kwargs) -> Dict[str, torch.Tensor]:
-    """One optimisation step: loss, backward, clip, AdamW.  Float32 master
-    weights; with ``compute_dtype=torch.bfloat16`` the forward and backward
-    run under ``torch.autocast``.  Returns the loss and the gradient norm
-    (tensors on the device, not synchronised)."""
+    """One micro-step: loss and backward; on the last of
+    ``accumulation_steps`` micro-steps (``micro_step`` counts from 0) also
+    clip and step the optimizer.  Float32 master weights; with
+    ``compute_dtype=torch.bfloat16`` the forward and backward run under
+    ``torch.autocast``.  Returns the loss, the gradient norm (None on a
+    micro-step that does not step) and whether the weights moved (tensors on
+    the device, not synchronised)."""
     dev = batch["pixel_values"].device.type
     autocast = (torch.autocast(dev, dtype=compute_dtype)
                 if compute_dtype != torch.float32 else nullcontext())
     modules.pose_guider.train()
-    optimizer.zero_grad(set_to_none=True)
+    if micro_step == 0:
+        optimizer.zero_grad(set_to_none=True)
     with autocast:
         loss = loss_fn(modules, batch, draws=draws, generator=generator,
                        **loss_kwargs)
-    loss.backward()
+    (loss / accumulation_steps if accumulation_steps > 1 else loss).backward()
+    if micro_step < accumulation_steps - 1:
+        return {"loss": loss.detach(), "grad_norm": None, "stepped": False}
     params = [p for group in optimizer.param_groups for p in group["params"]]
     for p in params:
         # a weight the loss does not reach (the last transformer block of the
@@ -220,4 +271,4 @@ def train_step(modules: PipelineModules, optimizer: torch.optim.Optimizer,
             p.grad = torch.zeros_like(p)
     norm = clip_by_global_norm(params, max_grad_norm)
     optimizer.step()
-    return {"loss": loss.detach(), "grad_norm": norm}
+    return {"loss": loss.detach(), "grad_norm": norm, "stepped": True}

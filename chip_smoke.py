@@ -4,7 +4,7 @@
     python3 chip_smoke.py                    # all phases (what CI runs)
     python3 chip_smoke.py --phase kernels    # only the kernel phase
     python3 chip_smoke.py --phase long-clip  # kernels, references, long clips
-    python3 chip_smoke.py --phase train      # only the two training phases
+    python3 chip_smoke.py --phase train      # only the training phases (stages 1 and 2)
     python3 chip_smoke.py --phase tok-ab     # guards, token-kernel A/B, K9 path
     python3 chip_smoke.py --phase entry      # the loader, pose2vid CLI and bench entries
     python3 chip_smoke.py --phase audio      # the audio-driven path and its serving core
@@ -103,6 +103,24 @@ Phases, each of which fails the run (nonzero exit) on any error:
    reference's ``.pt`` files (weight norm un-merged, packed in_proj) and
    read back onto the card bit for bit.
 
+10. stage 2 (``train2``, run after the stage-1 training phases and in
+   ``--phase train``): one stage-2 step of the micro model at 256 px, 8
+   frames, float32, gradient checkpointing on, on the card against the CPU
+   from the same weights, batch and draws (the loss and every motion-module
+   gradient; K2-K5b launched as ``stage2_reckoning`` counts); then the
+   stage-2 trainer of configs/train/stage2.yaml at SD-1.5 widths with the
+   motion modules of inference_v2.yaml (random weights from seed 0),
+   512x512, 16 frames, train_bs 1, bf16 compute with the frozen weights in
+   bf16, gradient checkpointing, float32 AdamW over the motion modules, on
+   seeded random batches: TRAIN2_STEPS steps and a profiled one (step
+   seconds, peak memory, idle share, device time by family with K3's plain
+   backward apart).  Losses must be finite, every motion-module tensor
+   move, every frozen weight stay bit for bit, and K2, K3, K4, K5a and K5b
+   launch exactly as ``stage2_reckoning`` counts (checkpointing runs K3 and
+   K5a twice); then two steps with 8-bit AdamW, whose state bytes are
+   printed against float32 AdamW's.  The kernel phase times K5a and K5b at
+   this path's 16 rows (``K5a.stage2``, ``K5b.stage2``).
+
 The last line of standard output is the device summary JSON; the line before
 it lists the kernels.  Without a CUDA device the script exits nonzero.
 """
@@ -164,6 +182,13 @@ SOURCES = {
            "aniportrait_tpu/ops/pallas_attention.py:1251"),
     "K9": ("ssa_packed", "aniportrait_tpu_torch/csrc/small_seq_attn_sm90.cu",
            "aniportrait_tpu/ops/pallas_attention.py:1847"),
+    # K5a and K5b at stage-2 training's 16 rows (the train2 phase's launches)
+    "K5a.stage2": ("flash_attention_fwd_lse stage 2 B=16",
+                   "aniportrait_tpu_torch/csrc/flash_attn_sm90.cu",
+                   "aniportrait_tpu/ops/pallas_attention.py:370"),
+    "K5b.stage2": ("flash_attention_bwd stage 2 B=16",
+                   "aniportrait_tpu_torch/csrc/flash_bwd_sm90.cu",
+                   "aniportrait_tpu/ops/pallas_attention.py:468"),
     # K4 in float32 at wav2vec2's self-attention (its FMA form): the audio
     # phase's B=1 S=1800 H=12 d=64 row, launches from the 40-s clip
     "K4.audio": ("flash_attention wav2vec2 float32 B=1 S=1800 H=12 d=64",
@@ -177,7 +202,8 @@ SOURCES = {
 FLASH_FWD = ("K1", "K2", "K2u", "K4", "K5a", "K7", "K8")
 # kernel id -> the tensor-core counter its bf16 form moves (tensor_core_check)
 TENSOR_CORE = {**{k: "forward" for k in FLASH_FWD}, "K5b": "backward", "K3": "temporal",
-               "K6": "small_seq", "K9": "small_seq"}
+               "K6": "small_seq", "K9": "small_seq", "K5a.stage2": "forward",
+               "K5b.stage2": "backward"}
 
 
 def log(msg: str) -> None:
@@ -475,6 +501,38 @@ def kernel_cases(dtype):
                       split=split: flash.plain_attention_bwd(
                           q[lo:hi], k[lo:hi], v[lo:hi], out[lo:hi], lse[lo:hi],
                           do[lo:hi], rows(drop, lo, hi), split), b, 1),
+             _sdpa_fwd_bwd(q, k, v, do, drop, split),
+             2.5 * fwd_flops, _nbytes(q, k, v, out, lse, do, q, k, v))
+
+    # K5a / K5b at stage-2 training's shapes (train_bs 1 x 16 frames, 512
+    # px): the denoising UNet's self + bank attention under the bank-drop
+    # mask with no row dropped (a CFG-dropped step drops all 16), at 64x64
+    # (d=40) and 32x32 (d=80)
+    b = 16
+    for sq, skv, hh, d in ((4096, 8192, 8, 40), (1024, 2048, 8, 80)):
+        q, k, v, do = rand(b, sq, hh, d), rand(b, skv, hh, d), rand(b, skv, hh, d), \
+            rand(b, sq, hh, d)
+        drop, split = torch.zeros(b, dtype=torch.bool, device="cuda"), skv // 2
+        label = f"B={b} Sq={sq} Skv={skv} H={hh} d={d} drop_tail=none kv_split={split}"
+        fwd_flops = _flash_flops(b, hh, sq, skv, d, drop, split)
+        plain_fwd = _chunked(lambda lo, hi, q=q, k=k, v=v, drop=drop, split=split:
+                             flash.plain_attention_fwd_lse(
+                                 q[lo:hi], k[lo:hi], v[lo:hi], drop[lo:hi], split), b, 1)
+        out, lse = plain_fwd()
+        out = out.contiguous()
+        case("K5a.stage2", label,
+             lambda q=q, k=k, v=v, drop=drop, split=split:
+                 K.flash_attention_fwd_lse(q, k, v, drop, split),
+             plain_fwd,
+             lambda q=q, k=k, v=v, drop=drop, split=split: _sdpa(q, k, v, drop, split),
+             fwd_flops, _nbytes(q, k, v, q, lse), tiled=tiled_ref(q, k, v, drop, split, 1))
+        case("K5b.stage2", label,
+             lambda q=q, k=k, v=v, out=out, lse=lse, do=do, drop=drop, split=split:
+                 K.flash_attention_bwd(q, k, v, out, lse, do, drop, split),
+             _chunked(lambda lo, hi, q=q, k=k, v=v, out=out, lse=lse, do=do, drop=drop,
+                      split=split: flash.plain_attention_bwd(
+                          q[lo:hi], k[lo:hi], v[lo:hi], out[lo:hi], lse[lo:hi],
+                          do[lo:hi], drop[lo:hi], split), b, 1),
              _sdpa_fwd_bwd(q, k, v, do, drop, split),
              2.5 * fwd_flops, _nbytes(q, k, v, out, lse, do, q, k, v))
     return cases
@@ -954,6 +1012,22 @@ ENTRY_CONFIG = {
 ENTRY_BENCH_TIMEOUT = 600  # seconds for one bench subprocess
 
 
+def pose_guider_routes(pg, height: int, width: int, frames: int) -> list:
+    """The route of each PoseGuider transformer's attention on ``frames``
+    pose maps of ``height x width``."""
+    from aniportrait_tpu_torch.ops.attention import attention_route
+
+    routes, side = [], (height // 8, width // 8)
+    for i in range(pg.num_stages):
+        if i < pg.num_stages - 1:
+            side = ((side[0] + 1) // 2, (side[1] + 1) // 2)
+        block = getattr(pg, f"cross_attn{i + 1}").transformer_blocks[0]
+        h = block.attn1.heads
+        s = side[0] * side[1]
+        routes.append(attention_route(frames, s, s, h, block.attn1.to_q.out_features // h))
+    return routes
+
+
 def attention_reckoning(modules, height: int, width: int, frames: int, steps: int,
                         calls_per_step: int = 1, windows_per_call: int = 1,
                         window_frames: int | None = None) -> dict:
@@ -998,15 +1072,7 @@ def attention_reckoning(modules, height: int, width: int, frames: int, steps: in
         counts[attention_route(call_frames, s, s, h, d)] += calls
         counts[attention_route(call_frames, s, s, h, d, bank=s)] += calls
         counts[attention_route(2 * call_frames, s, 1, h, d)] += calls
-    pg = modules.pose_guider
-    side = (height // 8, width // 8)
-    for i in range(pg.num_stages):
-        if i < pg.num_stages - 1:
-            side = ((side[0] + 1) // 2, (side[1] + 1) // 2)
-        block = getattr(pg, f"cross_attn{i + 1}").transformer_blocks[0]
-        h = block.attn1.heads
-        s = side[0] * side[1]
-        counts[attention_route(frames, s, s, h, block.attn1.to_q.out_features // h)] += 1
+    counts.update(pose_guider_routes(modules.pose_guider, height, width, frames))
     for _, _, route in temporal_routes(modules.denoising_unet, hlat, wlat,
                                        2 * windows_per_call, window_frames):
         counts[route] += calls
@@ -1483,13 +1549,13 @@ def audio_phase(results: dict) -> None:
 
 
 # ----------------------------------------------------------------- training
-def _train_batch(rs, b: int, res: int, clip_res: int):
+def _train_batch(rs, b: int, res: int, clip_res: int, frames: int = 1):
     """A batch in the train_step contract: channels-last images in [-1, 1]."""
     import numpy as np
 
     img = lambda *s: rs.uniform(-1, 1, s).astype(np.float32)
-    return {"pixel_values": img(b, 1, res, res, 3),
-            "pixel_values_pose": img(b, 1, res, res, 3),
+    return {"pixel_values": img(b, frames, res, res, 3),
+            "pixel_values_pose": img(b, frames, res, res, 3),
             "pixel_values_ref_img": img(b, res, res, 3),
             "clip_ref_image": rs.randn(b, clip_res, clip_res, 3).astype(np.float32)}
 
@@ -1553,7 +1619,12 @@ def train_reference_phase() -> None:
 
 def _profile_families(prof, wall_s: float):
     """Device seconds by kernel family from a torch.profiler run, and the
-    device's idle share of the wall time."""
+    device's idle share of the wall time.  Where the profile has the
+    device-side ranges of ``K3_BACKWARD`` (K3's plain-autograd backward,
+    ``ops/kernels/autograd.py``; recorded with CPU activity on), the kernels
+    inside them form a family of their own."""
+    from aniportrait_tpu_torch.ops.kernels.autograd import K3_BACKWARD
+
     families = (("flash backward (K5b; bf16: tensor cores)", ("flash_bwd",)),
                 ("flash forward, tensor cores (bf16 K1, K2, K4, K5a)", ("flash_fwd_sm90",)),
                 ("flash forward, FMA (float32)", ("flash_fwd",)),
@@ -1563,19 +1634,38 @@ def _profile_families(prof, wall_s: float):
                 ("convolution", ("conv", "cudnn", "implicit", "winograd", "fft")),
                 ("norm", ("norm",)),
                 ("optimizer", ("multi_tensor", "foreach", "adam")))
+    is_device = lambda evt: (evt.device_type is not None
+                             and "cuda" in str(evt.device_type).lower())
+    events = prof.events()
+    # the device copies of host ranges (user annotations) carry the host
+    # range's name; kernels never do
+    host_names = {e.name for e in events if not is_device(e)}
+    k3_ranges = sorted((e.time_range.start, e.time_range.end) for e in events
+                       if is_device(e) and e.name == K3_BACKWARD)
+    kernels = [e for e in events if is_device(e) and e.name not in host_names
+               and e.name != K3_BACKWARD]
     totals, busy = {}, 0.0
+    if kernels:
+        import bisect
+
+        starts = [a for a, _ in k3_ranges]
+        for evt in kernels:
+            us = evt.time_range.end - evt.time_range.start
+            i = bisect.bisect_right(starts, evt.time_range.start) - 1
+            if i >= 0 and evt.time_range.end <= k3_ranges[i][1]:
+                fam = f"{K3_BACKWARD} (autograd of plain_nat_temporal)"
+            else:
+                name = evt.name.lower()
+                fam = next((f for f, keys in families if any(k in name for k in keys)),
+                           "elementwise, reductions, copies")
+            totals[fam] = totals.get(fam, 0.0) + us / 1e6
+            busy += us / 1e6
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0.0)
-        if not us or evt.device_type is None or "cuda" not in str(evt.device_type).lower():
-            continue
         name = evt.key.lower()
-        fam = next((f for f, keys in families if any(k in name for k in keys)),
-                   "elementwise, reductions, copies")
-        totals[fam] = totals.get(fam, 0.0) + us / 1e6
-        busy += us / 1e6
-        if "_sm90_kernel" in name or "kernel_mma" in name:
+        if us and is_device(evt) and ("_sm90_kernel" in name or "kernel_mma" in name):
             # the tensor-core kernels by instantiation: calls and device time
             m = re.search(r"(\w+_kernel\w*<[^>]*>)", evt.key)
             log(f"[profile] {m.group(1) if m else evt.key[:100]}: {evt.count} calls, "
@@ -1676,6 +1766,273 @@ def training_phase(results: dict) -> None:
         f"{len(frozen_keys)} frozen tensors unchanged, running statistics updated")
     for kid in ("K5a", "K5b"):
         results.setdefault(kid, {})["launches"] = counts[kid]
+
+
+# ------------------------------------------------------------- stage 2
+TRAIN2_STEPS = 5  # stage-2 trainer steps before the profiled one (>= 4)
+TRAIN2_8BIT_STEPS = 2
+
+
+def unet_attention_walk(unet, hlat: int, wlat: int):
+    """``(kind, s, module)`` of every spatial transformer (kind "spatial")
+    and motion module ("motion") of one UNet call, in the order the forward
+    runs them; ``s`` is the level's latent positions."""
+    n = len(unet.down_blocks)
+    sizes = [(hlat, wlat)]
+    for _ in range(n - 1):
+        sizes.append(((sizes[-1][0] + 1) // 2, (sizes[-1][1] + 1) // 2))
+    blocks = [(b, i, unet.layers_per_block) for i, b in enumerate(unet.down_blocks)]
+    blocks += [(unet.mid_block, n - 1, 1)]
+    blocks += [(b, n - 1 - i, unet.layers_per_block + 1) for i, b in enumerate(unet.up_blocks)]
+    for blk, level, layers in blocks:
+        s = sizes[level][0] * sizes[level][1]
+        for j in range(layers):
+            for kind, name in (("spatial", "attentions"), ("motion", "motion_modules")):
+                if hasattr(blk, name):
+                    yield kind, s, getattr(blk, name)[j]
+
+
+def stage2_reckoning(modules, height: int, width: int, frames: int,
+                     checkpointing: bool) -> dict:
+    """K2, K3, K4, K5a and K5b launches of one stage-2 step (train_bs 1,
+    ``frames`` frames), from the models' structure and the routes of
+    ``ops/attention.py``:
+
+    * the VAE encoder's single-head mid-block attention on the frames and on
+      the reference image (K4 only where its head is small: the test sizes);
+    * the ReferenceNet on one frame, without gradients: its self attention
+      (K2 where it routes there);
+    * the PoseGuider's transformers on the frames, without gradients (K4);
+    * the denoising UNet on the frames: each spatial self attention reads
+      the bank through the bank-drop mask (``drop_mode='traced'``), the K4
+      route; before the first motion module nothing needs a gradient and it
+      runs K4, after it K5a forward and K5b backward; each temporal
+      attention runs K3 forward (its backward is plain autograd);
+    * with gradient checkpointing every block that records a gradient runs
+      its forward again in the backward: K5a and K3 twice."""
+    from collections import Counter
+
+    from aniportrait_tpu_torch.ops.attention import attention_route, sdpa_route
+
+    hlat, wlat = height // 8, width // 8
+    rerun = 2 if checkpointing else 1
+    counts = Counter(pose_guider_routes(modules.pose_guider, height, width, frames))
+    vae_d = modules.vae.encoder.conv_out.in_channels  # one head over the latent grid
+    for rows in (frames, 1):  # the target frames, then the reference image
+        counts[sdpa_route(rows, hlat * wlat, hlat * wlat, 1, vae_d)] += 1
+    for kind, s, st in unet_attention_walk(modules.reference_unet, hlat, wlat):
+        for block in st.transformer_blocks:
+            h = block.attn1.heads
+            counts[attention_route(1, s, s, h, block.attn1.to_q.out_features // h)] += 1
+    grad = False
+    for kind, s, mod in unet_attention_walk(modules.denoising_unet, hlat, wlat):
+        if kind == "motion":
+            grad = True
+            for block in mod.temporal_transformer.transformer_blocks:
+                for attn in block.attention_blocks:
+                    d = attn.to_q.out_features // attn.heads
+                    counts[attention_route(1, s, s, attn.heads, d, frames=frames)] += rerun
+            continue
+        for block in mod.transformer_blocks:
+            h = block.attn1.heads
+            route = sdpa_route(frames, s, 2 * s, h, block.attn1.to_q.out_features // h,
+                               masked=True)
+            if route == "K4" and grad:
+                counts["K5a"] += rerun
+                counts["K5b"] += 1
+            else:
+                counts[route] += 1
+    return {kid: counts[kid] for kid in ("K2", "K3", "K4", "K5a", "K5b")}
+
+
+def train2_reference_phase() -> None:
+    """One stage-2 step of the micro model at 256 px, 8 frames, float32,
+    gradient checkpointing on: the card (kernels) against the CPU (plain
+    versions) from the same weights, batch and draws."""
+    import numpy as np
+    import torch
+
+    from aniportrait_tpu_torch import factory
+    from aniportrait_tpu_torch.ops import kernels as K
+    from aniportrait_tpu_torch.train import train_step as ts
+    from aniportrait_tpu_torch.train.stage2 import Stage2Settings
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    settings = Stage2Settings()
+    b, frames, res = 1, 8, 256
+    cpu = factory.build_training_models(
+        "micro", "cpu", seed=0, frozen_dtype=torch.float32, stage=2,
+        gradient_checkpointing=True, scheduler_kwargs=settings.scheduler_kwargs())
+    rs = np.random.RandomState(5)
+    batch = _train_batch(rs, b, res, cpu.clip.image_size, frames)
+    hl = res // 8
+    draws = dict(eps_target=rs.randn(b * frames, 4, hl, hl), eps_ref=rs.randn(b, 4, hl, hl),
+                 noise=rs.randn(b, frames, 4, hl, hl), offset=rs.randn(b, 1, 4, 1, 1))
+    t = rs.randint(0, 1000, (b,))
+    loss, grads = {}, {}
+    for device, modules in (("cuda", cpu.to("cuda")), ("cpu", cpu)):
+        trainable = ts.apply_freeze(modules, stage=2)
+        opt = ts.make_optimizer(trainable)
+        step_draws = ts.Draws(
+            **{k: torch.from_numpy(v.astype(np.float32)).to(device) for k, v in draws.items()},
+            uncond=torch.tensor(False, device=device), t=torch.from_numpy(t).to(device))
+        K.reset_launch_counts()
+        out = ts.train_step(modules, opt, {k: torch.from_numpy(v).to(device)
+                                           for k, v in batch.items()},
+                            draws=step_draws, uncond_ratio=settings.uncond_ratio)
+        loss[device] = float(out["loss"])
+        grads[device] = {k: p.grad.float().cpu() for k, p in trainable.items()}
+        if device == "cuda":
+            counts = K.launch_counts()
+            want = stage2_reckoning(modules, res, res, frames, checkpointing=True)
+    scale = max(g.abs().max().item() for g in grads["cpu"].values())
+    err = max((grads["cuda"][k] - g).abs().max().item() for k, g in grads["cpu"].items())
+    loss_err = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    got = {k: counts[k] for k in want}
+    log(f"[train2-reference] micro stage 2, {res}px, {frames} frames, float32, gradient "
+        f"checkpointing: loss gpu {loss['cuda']:.7f} cpu {loss['cpu']:.7f} (rel err "
+        f"{loss_err:.2e}, tol {TRAIN_LOSS_RTOL:g}); {len(grads['cpu'])} motion-module "
+        f"tensors, max |grad gpu - cpu| = {err:.3e} = {err / scale:.2e} of the largest "
+        f"gradient {scale:.3e} (tol {TRAIN_GRAD_TOL:g}); launches {got}, reckoned {want}")
+    if not math.isfinite(loss["cuda"]) or loss_err > TRAIN_LOSS_RTOL:
+        raise SystemExit("train2 reference phase: GPU loss disagrees with CPU")
+    if not err <= TRAIN_GRAD_TOL * scale:
+        raise SystemExit("train2 reference phase: GPU gradients disagree with CPU")
+    if got != want or not got["K3"] or not got["K5b"]:
+        raise SystemExit(f"train2 reference phase: launches {got} != reckoning {want}")
+
+
+def train2_phase(results: dict) -> None:
+    """The stage-2 trainer at SD-1.5 widths with the motion modules of
+    inference_v2.yaml: 512x512, 16 frames, train_bs 1, bf16 compute with the
+    frozen weights in bf16, float32 AdamW over the motion modules, gradient
+    checkpointing, seeded random batches: TRAIN2_STEPS steps and a profiled
+    one; then TRAIN2_8BIT_STEPS steps with 8-bit AdamW."""
+    import numpy as np
+    import torch
+
+    from aniportrait_tpu_torch import factory
+    from aniportrait_tpu_torch.ops import kernels as K
+    from aniportrait_tpu_torch.train.optim8bit import state_bytes
+    from aniportrait_tpu_torch.train.stage2 import Stage2Settings, train
+    from aniportrait_tpu_torch.train.train_step import apply_freeze, make_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    settings = Stage2Settings(seed=0)
+    res, b, frames = settings.sample_size[0], settings.train_bs, settings.sample_n_frames
+    t0 = time.perf_counter()
+    modules = factory.build_training_models(
+        "full", "cuda", seed=0, stage=2, gradient_checkpointing=True,
+        scheduler_kwargs=settings.scheduler_kwargs())
+    torch.cuda.synchronize()
+    log(f"[train2] full-size stage-2 models built on the GPU in "
+        f"{time.perf_counter() - t0:.1f} s")
+    trainable = apply_freeze(modules, stage=2)
+    named = {f"{m}.{n}": p for m, mod in modules.models().items()
+             for n, p in mod.named_parameters()}
+    # the copies the checks compare with live on the host, out of the peak
+    host = lambda p: p.detach().to("cpu", copy=True)
+    frozen = {k: host(p) for k, p in named.items() if k not in trainable}
+    before = {k: host(p) for k, p in trainable.items()}
+    n_train = sum(p.numel() for p in trainable.values())
+    dtypes = sorted({str(p.dtype) for k, p in named.items() if k not in trainable
+                     and ".motion_modules." not in k})
+    clip_res = modules.clip.image_size
+    rs = np.random.RandomState(0)
+    want = stage2_reckoning(modules, res, res, frames, settings.gradient_checkpointing)
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    # the last step profiled with host activity on, so that the device
+    # copies of the K3_BACKWARD ranges mark K3's plain backward
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=TRAIN2_STEPS - 1, warmup=1, active=1))
+
+    def batches(n, profiled):
+        for _ in range(n):
+            yield _train_batch(rs, b, res, clip_res, frames)
+            if profiled:
+                prof.step()
+
+    opt = make_optimizer(trainable, settings.learning_rate, settings.adam_weight_decay,
+                         (settings.adam_beta1, settings.adam_beta2), settings.adam_epsilon)
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with prof:
+        history = train(settings, modules, batches(TRAIN2_STEPS + 1, True),
+                        max_steps=TRAIN2_STEPS + 1, device="cuda", optimizer=opt)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fp32_bytes = state_bytes(opt)
+    for h in history:
+        log(f"[train2] step {h['step']}: loss {h['loss']:.6f} grad norm "
+            f"{h['grad_norm']:.4f} {h['seconds']:.3f} s")
+    steady = [h["seconds"] for h in history[1:TRAIN2_STEPS - 1]]
+    steps = len(history)
+    got = {k: counts[k] for k in want}
+    log(f"[train2] {res}x{res} {frames} frames train_bs {b} bf16 compute (frozen weights "
+        f"{', '.join(dtypes)}), float32 AdamW over {n_train / 1e6:.1f} M motion-module "
+        f"parameters, gradient checkpointing: steps 1-{TRAIN2_STEPS - 2} (not profiled) "
+        f"{', '.join(f'{t:.3f}' for t in steady)} s, mean {sum(steady) / len(steady):.3f} "
+        f"s; peak device memory {peak:.2f} GiB; launches over {steps} steps {got}, "
+        f"reckoned {steps} x {want}")
+    wall = history[-1]["seconds"]
+    totals, busy, idle = _profile_families(prof, wall)
+    if busy:
+        shares = ", ".join(f"{f} {s:.3f} s ({s / busy:.1%})"
+                           for f, s in sorted(totals.items(), key=lambda x: -x[1]))
+        log(f"[train2] profiled step {history[-1]['step']}: {wall:.3f} s wall, "
+            f"{busy:.3f} s device busy, idle share {idle:.1%}; by family: {shares}")
+    else:
+        log("[train2] profiled step: the profiler gave no device time (not measured)")
+    del prof
+
+    losses = [h["loss"] for h in history]
+    if steps != TRAIN2_STEPS + 1 or not all(map(math.isfinite, losses)):
+        raise SystemExit(f"train2: losses {losses}")
+    still = [k for k, p in trainable.items() if torch.equal(before[k], host(p))]
+    if still:
+        raise SystemExit(f"train2: {len(still)} motion-module tensors did not move: "
+                         f"{still[:5]}")
+    changed = [k for k, v in frozen.items() if not torch.equal(v, host(named[k]))]
+    if changed or not frozen:
+        raise SystemExit(f"train2: frozen parameters changed: {changed[:5]}")
+    if got != {k: v * steps for k, v in want.items()}:
+        raise SystemExit(f"train2: launches {got} != {steps} x reckoning {want}")
+    tensor_core_check("train2", ("forward", "backward", "temporal"))
+    for kid in ("K5a", "K5b"):
+        results.setdefault(f"{kid}.stage2", {})["launches"] = counts[kid]
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8-bit AdamW over the same motion modules
+    opt8 = make_optimizer(trainable, settings.learning_rate, settings.adam_weight_decay,
+                          (settings.adam_beta1, settings.adam_beta2), settings.adam_epsilon,
+                          adam_8bit=True)
+    before = {k: host(p) for k, p in trainable.items()}
+    history = train(settings, modules, batches(TRAIN2_8BIT_STEPS, False),
+                    max_steps=TRAIN2_8BIT_STEPS, device="cuda", optimizer=opt8)
+    bytes8 = state_bytes(opt8)
+    moved = sum(not torch.equal(before[k], host(p)) for k, p in trainable.items())
+    log(f"[train2] 8-bit AdamW: {len(history)} steps, losses "
+        f"{', '.join(f'{h['loss']:.6f}' for h in history)}, "
+        f"{', '.join(f'{h['seconds']:.3f}' for h in history)} s; {moved}/{len(trainable)} "
+        f"motion-module tensors moved; optimizer state {bytes8 / 2**20:.1f} MiB "
+        f"({bytes8 / n_train:.3f} B/parameter) against float32 AdamW's "
+        f"{fp32_bytes / 2**20:.1f} MiB ({fp32_bytes / n_train:.3f} B/parameter)")
+    if (len(history) != TRAIN2_8BIT_STEPS
+            or not all(math.isfinite(h["loss"]) for h in history) or moved == 0
+            or not bytes8 < fp32_bytes / 3):
+        raise SystemExit("train2: the 8-bit AdamW steps failed")
+    changed = [k for k, v in frozen.items() if not torch.equal(v, host(named[k]))]
+    if changed:
+        raise SystemExit(f"train2: frozen parameters changed under 8-bit AdamW: "
+                         f"{changed[:5]}")
+    log(f"[train2] ok: {len(trainable)} motion-module tensors moved, {len(frozen)} frozen "
+        f"tensors unchanged, launches as reckoned")
 
 
 # ------------------------------------------------------- token-kernel A/B
@@ -1856,6 +2213,10 @@ def main() -> int:
     if args.phase in ("all", "train"):
         train_reference_phase()
         training_phase(results)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train2_reference_phase()
+        train2_phase(results)
         gc.collect()
         torch.cuda.empty_cache()
     if args.phase in ("all", "tok-ab"):

@@ -54,7 +54,7 @@ from aniportrait_tpu_torch.weights import from_jax
 from scripts import audio2vid as jax_audio2vid
 from test_audio_stack import TINY_W2V
 from test_torch_cli import faces, modules  # noqa: F401  (fixtures)
-from test_torch_modules import init_jax, run_jax
+from test_torch_modules import init_jax, one_thread, run_jax  # noqa: F401 (one_thread: autouse)
 from test_torch_pipeline import opencv_portable
 
 ROOT = Path(__file__).resolve().parents[1]

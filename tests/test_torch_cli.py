@@ -45,6 +45,7 @@ from aniportrait_tpu_torch.utils import mp_utils as port_mp
 from scripts import pose2vid as jax_pose2vid
 from scripts import vid2vid as jax_vid2vid
 from test_torch_pipeline import build_modules, opencv_portable
+from test_torch_modules import one_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 FACES = ("lyl", "solo", "Aragaki")
@@ -193,8 +194,10 @@ def test_acc_raises_before_any_model_is_built(cli, monkeypatch):
 
 
 def test_bench_tiny_prints_one_json_line():
+    # one intra-op thread, as the in-process port tests run (test_torch_modules.one_thread)
     res = subprocess.run([sys.executable, "-m", "aniportrait_tpu_torch.scripts.bench",
-                          "--tiny"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+                          "--tiny"], cwd=ROOT, capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert res.returncode == 0, res.stderr[-2000:]
     lines = res.stdout.strip().splitlines()
     assert len(lines) == 1

@@ -6,6 +6,7 @@ pipeline, kernels, a whole-clip generation; the loader and the pose2vid
 CLI's generation; the audio models, the audio loader and the serving core's
 request on arrays) loads none of them either."""
 
+import os
 import pkgutil
 import subprocess
 import sys
@@ -71,6 +72,7 @@ def test_smoke_path_loads_nothing_of_the_jax_package():
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {REFUSED!r})\n"
         "assert not bad, bad\n"
     )
+    # one intra-op thread, as the in-process port tests run (test_torch_modules.one_thread)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300)
+                         text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert res.returncode == 0, res.stderr[-2000:]

@@ -40,6 +40,7 @@ from aniportrait_tpu_torch.scripts import loader
 from aniportrait_tpu_torch.weights import from_jax
 from scripts.loader import load_pipeline as jax_load_pipeline
 from test_torch_pipeline import fill, opencv_portable
+from test_torch_modules import one_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PROMPT = ROOT / "configs" / "prompts" / "animation.yaml"

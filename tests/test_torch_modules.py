@@ -22,6 +22,20 @@ from aniportrait_tpu_torch.weights import from_jax
 BLOCK_ATOL, BLOCK_RTOL = 2e-4, 1e-3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The port's tests run many small torch ops on the CPU.  With one
+    intra-op thread an op does not wait at the thread pool's barriers, which
+    a CPU shared with other test processes stretches many times over (a
+    micro stage-2 step ran 20-40x slower with 8 threads in a six-process
+    pytest run of the whole suite than alone).  Each module that imports
+    this fixture runs under it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def fill(tree, seed=0):
     """numpy parameters for an eval_shape tree: weights ~ N(0, 1/fan_in) so
     activations stay O(1) (attention logits are then not flat), norm scales

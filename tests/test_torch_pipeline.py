@@ -32,6 +32,7 @@ from aniportrait_tpu_torch import factory
 from aniportrait_tpu_torch.pipelines import Pose2ImagePipeline, Pose2VideoPipeline
 from aniportrait_tpu_torch.utils.image import resize
 from aniportrait_tpu_torch.weights import from_jax
+from test_torch_modules import one_thread  # noqa: F401 (autouse)
 
 KW = dict(context_frames=4, context_overlap=2, window_batch=2)
 RES, STEPS, CFG = 64, 2, 3.5

@@ -27,6 +27,7 @@ from aniportrait_tpu_torch.models.motion_module import split_windows
 from aniportrait_tpu_torch.pipelines import Pose2VideoPipeline
 from aniportrait_tpu_torch.pipelines.interpolation import interpolate_latents
 from test_torch_pipeline import CFG, KW, RES, STEPS, build_modules
+from test_torch_modules import one_thread  # noqa: F401 (autouse)
 
 H = RES // 8
 

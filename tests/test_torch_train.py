@@ -30,7 +30,7 @@ from aniportrait_tpu_torch.train import train_step as port_train
 from aniportrait_tpu_torch.train.stage1 import Stage1Settings
 from aniportrait_tpu_torch.weights import convert as cv
 from aniportrait_tpu_torch.weights import from_jax
-from test_torch_modules import fill, t
+from test_torch_modules import fill, one_thread, t  # noqa: F401 (one_thread: autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -242,20 +242,40 @@ def test_freeze_mask_stage1_full_size():
 
 
 # ----------------------------------------------------------- (d) settings
-def test_stage1_settings_defaults_equal_the_yaml():
-    cfg = yaml.safe_load((ROOT / "configs/train/stage1.yaml").read_text())
-    flat = {**cfg["solver"], **{k: v for k, v in cfg.items() if not isinstance(v, dict)}}
-    settings = Stage1Settings()
+# settings the original's solver reads that this repository's YAMLs leave
+# out, with the original's default
+NOT_IN_YAML = {"use_8bit_adam": False}
+
+
+def settings_equal_the_yaml(settings, path):
+    """Every field of ``settings`` equals its key in the YAML at ``path``
+    (the ``data``, ``solver`` and ``val`` sections and the top level), or is
+    one of ``NOT_IN_YAML`` at its default; ``from_config`` of the YAML gives
+    the same settings.  Returns the number of keys checked."""
+    from aniportrait_tpu_torch.config import load_config
+
+    cfg = yaml.safe_load((ROOT / path).read_text())
+    flat = {**cfg["data"], **cfg["solver"], **cfg["val"],
+            **{k: v for k, v in cfg.items() if not isinstance(v, dict)}}
     assert settings.sample_size == tuple(cfg["data"]["sample_size"])
     assert settings.noise_scheduler_kwargs == cfg["noise_scheduler_kwargs"]
     checked = 0
     for name, value in vars(settings).items():
         if name in ("sample_size", "noise_scheduler_kwargs"):
             continue
+        if name in NOT_IN_YAML:
+            assert name not in flat and value == NOT_IN_YAML[name], name
+            continue
         assert name in flat, name
         assert value == flat[name], (name, value, flat[name])
         checked += 1
-    assert checked >= 15
+    assert type(settings).from_config(load_config(str(ROOT / path))) == settings
+    return checked
+
+
+def test_stage1_settings_defaults_equal_the_yaml():
+    settings = Stage1Settings()
+    assert settings_equal_the_yaml(settings, "configs/train/stage1.yaml") >= 15
     kw = settings.scheduler_kwargs()
     assert kw["prediction_type"] == "v_prediction" and kw["rescale_betas_zero_snr"]
     assert settings.compute_dtype == torch.bfloat16
