@@ -116,6 +116,50 @@ def init_weights(model: nn.Module, generator: torch.Generator, std: float = 0.02
     return model
 
 
+@torch.no_grad()
+def init_flax_defaults(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random weights by the rule of flax's initializers, as the JAX
+    package's ``init_random_params`` draws them (the weights of the stored
+    quality-gate table, ``docs/quality_gate*.json``): Linear and Conv
+    weights lecun-normal (a normal of variance 1 / fan_in truncated at two
+    standard deviations), biases 0, norm scales 1; and the JAX models' own
+    initializers: the motion modules' ``proj_out`` and the PoseGuider's
+    ``final_proj`` zero (so the motion modules start as the identity), the
+    PoseGuider's other convs He-normal, its ``scale`` 2, CLIP's class and
+    position embeddings N(0, 0.02)."""
+    pose_guider = isinstance(model, PoseGuider)
+    for name, mod in model.named_modules():
+        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+            fan_in = mod.weight[0].numel()
+            if name.endswith("temporal_transformer.proj_out") or (
+                    pose_guider and name == "final_proj"):
+                mod.weight.zero_()
+            elif pose_guider and name.startswith("conv_layers"):
+                mod.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=generator)
+            else:
+                std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, NORMS):
+            if mod.weight is not None:
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            if isinstance(mod, nn.BatchNorm2d):
+                mod.reset_running_stats()
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(mod, PositionalEncoding):
+            mod.reset_parameters()
+        for pname, p in mod.named_parameters(recurse=False):
+            if pname == "class_embedding":
+                p.normal_(0.0, 0.02, generator=generator)
+            elif pose_guider and pname == "scale":
+                p.fill_(2.0)
+    return model
+
+
 def cast(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast to ``dtype``, keeping BatchNorm (parameters and running
     statistics) in float32."""
@@ -129,16 +173,19 @@ def cast(model: nn.Module, dtype: torch.dtype) -> nn.Module:
 def build_models(size: str = "full", device="cuda", dtype=torch.float32, seed: int = 0,
                  use_motion_module: bool = True,
                  scheduler_kwargs: Dict[str, Any] | None = None,
-                 unet_overrides: Dict[str, Any] | None = None) -> PipelineModules:
+                 unet_overrides: Dict[str, Any] | None = None,
+                 init=init_weights) -> PipelineModules:
     """The five models at ``size`` on ``device`` in ``dtype``, eval mode, no
-    gradients, weights drawn on the device from ``seed``."""
+    gradients, weights drawn on the device from ``seed`` by ``init``
+    (:func:`init_weights`, or :func:`init_flax_defaults` for the quality
+    gate)."""
     device = torch.device(device)
     with torch.device("meta"):
         models = make_models(size, use_motion_module, unet_overrides)
     gen = torch.Generator(device=device).manual_seed(seed)
     for model in models.values():
         model.to_empty(device=device)
-        init_weights(model, gen)
+        init(model, gen)
         cast(model, dtype).eval().requires_grad_(False)
     return PipelineModules(
         scheduler=DDIMScheduler(**(scheduler_kwargs or INFERENCE_SCHEDULER)), **models

@@ -34,15 +34,16 @@ import torch
 from aniportrait_tpu_torch.config import load_config
 from aniportrait_tpu_torch.scripts.loader import load_audio_models, sub_config
 from aniportrait_tpu_torch.scripts.pose2vid import (
-    ACC_NOT_PORTED,
     add_common_args,
     generate,
     load_pipe,
     output_dir,
     reference_pose,
+    sub_step,
 )
 from aniportrait_tpu_torch.utils.audio_util import prepare_audio_feature
 from aniportrait_tpu_torch.utils.draw_util import FaceMeshVisualizer
+from aniportrait_tpu_torch.utils.frame_interpolation import init_for_cli
 from aniportrait_tpu_torch.utils.mp_utils import LMKExtractor
 from aniportrait_tpu_torch.utils.pose_util import project_points, smooth_pose_seq
 from aniportrait_tpu_torch.utils.profiling import PhaseTimer
@@ -54,8 +55,6 @@ SAMPLE_RATE, FPS, CHUNK_SECONDS = 16000, 30, 5
 def parse_args(argv=None):
     parser = add_common_args(argparse.ArgumentParser(),
                              "./configs/prompts/animation_audio.yaml", 30)
-    parser.add_argument("--fi_weights", type=str, default=None,
-                        help="FiLM net weights (with -acc, not ported yet)")
     return parser.parse_args(argv)
 
 
@@ -144,12 +143,13 @@ def audio_case(a2m, a2p, sample: dict, face_result: dict, ref_rgb: np.ndarray,
                ref_pose: np.ndarray | None, width: int, height: int,
                length: int | None = None, pose_temp: np.ndarray | None = None,
                id_seed: int | None = None, draw=None, pose_maps=None,
-               timer: PhaseTimer | None = None) -> dict:
+               timer: PhaseTimer | None = None, stride: int = 1) -> dict:
     """A ``run_cases`` case from arrays: ``sample`` is
     ``prepare_audio_feature``'s dict; the first ``length`` frames (default
     all) of :func:`pose_vertices`, each drawn by ``draw(vertices)`` as a
     ``width x height`` uint8 image, or, where no drawing is possible, the
-    given ``pose_maps`` cycled to the clip in their place."""
+    given ``pose_maps`` cycled to the clip in their place.  Every
+    ``stride``-th of them is diffused (``-acc``); ``pose_row`` keeps all."""
     projected = pose_vertices(a2m, a2p, sample["audio_feature"], sample["seq_len"],
                               face_result, width, height, pose_temp, id_seed, timer)
     n = len(projected) if length is None else min(length, len(projected))
@@ -157,16 +157,15 @@ def audio_case(a2m, a2p, sample: dict, face_result: dict, ref_rgb: np.ndarray,
         poses = [pose_maps[i % len(pose_maps)] for i in range(n)]
     else:
         poses = [draw(verts) for verts in projected[:n]]
-    return dict(ref_image=ref_rgb, pose_images=poses, ref_pose_image=ref_pose,
-                kw=dict(video_length=n))
+    return dict(ref_image=ref_rgb, pose_images=poses[::stride], ref_pose_image=ref_pose,
+                kw=dict(video_length=len(poses[::stride])), pose_row=poses)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.accelerate:
-        raise NotImplementedError(ACC_NOT_PORTED)
     import cv2
 
+    interpolator = init_for_cli(args.fi_weights, args.device) if args.accelerate else None
     config = load_config(args.config)
     a2m, a2p = load_audio_models(sub_config(config.audio_inference_config),
                                  device=args.device)
@@ -189,11 +188,12 @@ def main(argv=None):
             sample = prepare_audio_feature(audio_path, fps=args.fps)
             id_seed = None if pose_temp is not None else random.randint(0, 99)
             cases.append(audio_case(a2m, a2p, sample, face_result, ref_rgb, ref_pose,
-                                    args.W, args.H, args.L, pose_temp, id_seed, draw=draw))
+                                    args.W, args.H, args.L, pose_temp, id_seed, draw=draw,
+                                    stride=sub_step(args)))
             metas.append(dict(ref_name=Path(ref_image_path).stem,
                               audio_name=Path(audio_path).stem, audio_path=audio_path))
 
-    for key, grid in generate(pipe, cases, args):
+    for key, grid in generate(pipe, cases, args, interpolator=interpolator):
         meta = metas[key]
         noaudio = (f"{save_dir}/{meta['ref_name']}_{meta['audio_name']}"
                    f"_{args.H}x{args.W}_{int(args.cfg)}_{time_str}_noaudio.mp4")

@@ -12,7 +12,9 @@ the time; shapes and dtypes are the real model's).
     python -m aniportrait_tpu_torch.scripts.bench --config long [--frames n] [--window-fusion]
     python -m aniportrait_tpu_torch.scripts.bench --config audio2mesh     # wav2vec2 + mesh head, 5 s
     python -m aniportrait_tpu_torch.scripts.bench --config audio2vid [--pose-maps fixture]
+    python -m aniportrait_tpu_torch.scripts.bench --config audio2vid_acc [--pose-maps fixture]
     python -m aniportrait_tpu_torch.scripts.bench --tiny                  # tiny smoke, on the CPU
+    python -m aniportrait_tpu_torch.scripts.bench --quality OURS REF [gate flags]  # quality_gate
 
 Protocol (``bench.py:79-151``): inputs staged on the device before the
 timed region; one warm-up call, then the median of 3 calls of
@@ -37,7 +39,14 @@ of 3 staged pipeline calls at 512x512, 25 steps, window batch 1, windowed;
 ``vs_baseline`` divides by ``A100_FPS_512_25``.  With ``--pose-maps
 fixture`` the maps are those of tests/fixtures/landmark_golden.npz cycled
 to the clip (drawing needs OpenCV, which the card's machine lacks), and the
-drawing is left out of the time, as stderr says.
+drawing is left out of the time, as stderr says.  ``audio2vid_acc``
+(``bench.py:270-345``): the same, but every 3rd of the 48 frames is
+diffused (16) and FiLM (random weights, bf16 on the card) inserts 2 frames
+between each pair on the device, 46 frames out; ``vs_baseline`` divides by
+3 x ``A100_FPS_512_25``, the reference's ``-acc`` getting the same 3x.
+
+``--quality OURS REF ...`` forwards the rest of the command line to
+``scripts/quality_gate.py`` (PSNR / SSIM / LPIPS of two clips).
 
 The models run on the card; ``--device cpu`` (or ``--tiny``, which implies
 it) asks for the CPU.  Without a card and without either, the bench fails.
@@ -57,11 +66,6 @@ A100_FPS_512_25 = 1.0  # bench.py:34, cost-modeled reference throughput
 
 ROOT = Path(__file__).resolve().parents[2]
 FIXTURE = ROOT / "tests" / "fixtures" / "landmark_golden.npz"
-
-# configurations of the JAX bench whose paths the port does not have yet
-NOT_PORTED = {
-    "audio2vid_acc": "-acc (FiLM frame interpolation) is not ported yet: ROADMAP M8",
-}
 
 
 def _one_line(metric: str, fps: float, baseline: float, unit: str = "frames/s") -> None:
@@ -185,13 +189,17 @@ def _audio_pose_frames(frames: int, res: int, device: str, pose_maps: str):
 
 
 def bench_audio2vid(frames: int = 48, res: int = 512, steps: int = 25,
-                    pose_maps: str = "draw", device: str = "cuda") -> None:
-    """The whole audio -> video path (the JAX bench's ``bench_audio2vid``
-    without ``-acc``)."""
+                    pose_maps: str = "draw", device: str = "cuda", acc: bool = False) -> None:
+    """The whole audio -> video path (the JAX bench's ``bench_audio2vid``);
+    ``acc``: diffuse every 3rd frame and FiLM-interpolate 2 between."""
     import torch
 
     from aniportrait_tpu_torch import factory
     from aniportrait_tpu_torch.pipelines import Pose2VideoPipeline
+    from aniportrait_tpu_torch.utils.frame_interpolation import (
+        batch_images_interpolation_tool,
+        init_frame_interpolation_model,
+    )
 
     on_card = device == "cuda"
 
@@ -206,35 +214,55 @@ def bench_audio2vid(frames: int = 48, res: int = 512, steps: int = 25,
         print("pose maps: the fixture's (tests/fixtures/landmark_golden.npz) cycled to the "
               "clip; drawing is left out of the time", file=sys.stderr)
     ref = np.random.RandomState(0).randint(0, 255, (res, res, 3), np.uint8)
+    fi_step = 3 if acc else 1
+    maps = maps[::fi_step]
+    diff_frames = len(maps)
+    out_frames = (diff_frames - 1) * fi_step + 1
     modules = factory.build_models("full", device, torch.bfloat16, seed=0)
     pipe = Pose2VideoPipeline(modules, dtype=torch.bfloat16, window_batch=1)
-    kw = dict(width=res, height=res, video_length=frames, num_inference_steps=steps,
+    # random-weight FiLM net (the real architecture; weights do not change the time)
+    film = (init_frame_interpolation_model(random_init=True, device=device)
+            if acc else None)
+    kw = dict(width=res, height=res, video_length=diff_frames, num_inference_steps=steps,
               guidance_scale=3.5, seed=0, windowed=True, decode_chunk=8)
     staged = pipe.stage_inputs(ref, maps, res, res, device=True)
     sync()
 
     def run():
-        pipe(staged, None, None, return_device=True, **kw)
+        video = pipe(staged, None, None, return_device=True, **kw)
+        if acc:  # on the device: uint8 in, uint8 out
+            video = batch_images_interpolation_tool(video, film, inter_frames=fi_step - 1,
+                                                    return_device=True)[0]
         sync()
+        return video
 
-    run()  # warm-up
+    warm = run()
+    if warm.shape != (out_frames, res, res, 3):
+        raise SystemExit(f"bench: audio2vid gave {tuple(warm.shape)}")
     pipe.timer.totals.clear()
     pipe.timer.counts.clear()
     diffusion = _median_time(run, 3)
     phases = pipe.timer.report()
     dt = diffusion + t_audio
     t0 = time.perf_counter()
-    video = pipe(ref, maps, None, **kw)
+    video = pipe(ref, maps, None, return_device=acc, **kw)
+    if acc:
+        video = batch_images_interpolation_tool(video, film, inter_frames=fi_step - 1)[0]
     e2e = time.perf_counter() - t0 + t_audio
-    if video.shape != (frames, res, res, 3):
+    if video.shape != (out_frames, res, res, 3):
         raise SystemExit(f"bench: audio2vid gave {video.shape}")
     where = torch.cuda.get_device_name(0) if on_card else "CPU"
     print(f"device: {where}\n"
-          f"audio stack (warm) {t_audio:.3f} s; diffusion median of 3 staged calls "
-          f"{diffusion:.3f} s; {frames} frames in {dt:.3f} s\n"
+          f"audio stack (warm) {t_audio:.3f} s; diffusion {diff_frames} frames"
+          f"{' + FiLM' if acc else ''}, median of 3 staged calls {diffusion:.3f} s; "
+          f"output {out_frames} frames in {dt:.3f} s\n"
           f"phase breakdown (3 staged calls): {phases}\n"
-          f"e2e incl. host transfers: {e2e:.2f} s ({frames / e2e:.3f} f/s)", file=sys.stderr)
-    _one_line("audio2vid_frames_per_sec", frames / dt, A100_FPS_512_25)
+          f"e2e incl. host transfers: {e2e:.2f} s ({out_frames / e2e:.3f} f/s)",
+          file=sys.stderr)
+    if acc:
+        _one_line("audio2vid_acc_frames_per_sec", out_frames / dt, A100_FPS_512_25 * fi_step)
+    else:
+        _one_line("audio2vid_frames_per_sec", out_frames / dt, A100_FPS_512_25)
 
 
 def bench_pose2vid(size: str = "full", steps: int = 25, frames: int = 16, res: int = 512,
@@ -316,7 +344,7 @@ def bench_pose2vid(size: str = "full", steps: int = 25, frames: int = 16, res: i
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", choices=("pose2vid256", "vid2vid24", "long", "audio2mesh",
-                                             "audio2vid", *NOT_PORTED))
+                                             "audio2vid", "audio2vid_acc"))
     parser.add_argument("--encoder-cache", type=int, default=1)
     parser.add_argument("--window-fusion", action="store_true")
     parser.add_argument("--window-batch", type=int, default=1)
@@ -327,18 +355,19 @@ def parse_args(argv=None):
                         help="audio2vid: draw the pose maps (OpenCV), or take the test "
                              "fixture's and leave drawing out of the time")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    parser.add_argument("--quality", nargs="+", metavar="VIDEO",
-                        help="the LPIPS/PSNR gate: not ported yet (ROADMAP M13)")
+    parser.add_argument("--quality", action="store_true",
+                        help="OURS REF [quality_gate flags]: the PSNR/SSIM/LPIPS gate "
+                             "(every argument after --quality goes to it)")
     return parser.parse_args(argv)
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if "--quality" in argv:
+        from aniportrait_tpu_torch.scripts.quality_gate import main as quality_main
+
+        return quality_main(argv[argv.index("--quality") + 1:])
     args = parse_args(argv)
-    if args.quality:
-        raise NotImplementedError("--quality (LPIPS/PSNR gate) is not ported yet: "
-                                  "ROADMAP M13")
-    if args.config in NOT_PORTED:
-        raise NotImplementedError(f"--config {args.config}: {NOT_PORTED[args.config]}")
     device = "cpu" if args.tiny else args.device
     if device == "cuda":
         import torch
@@ -352,8 +381,9 @@ def main(argv=None) -> None:
                               device=device)
     if args.config == "audio2mesh":
         return bench_audio2mesh(device)
-    if args.config == "audio2vid":
-        return bench_audio2vid(pose_maps=args.pose_maps, device=device)
+    if args.config in ("audio2vid", "audio2vid_acc"):
+        return bench_audio2vid(pose_maps=args.pose_maps, device=device,
+                               acc=args.config == "audio2vid_acc")
     if args.config == "pose2vid256":
         return bench_pose2vid(steps=10, frames=16, res=256, device=device)
     if args.config == "vid2vid24":
@@ -376,4 +406,4 @@ def main(argv=None) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -13,6 +13,12 @@ reference, its pose drawing; OpenCV) turns decoded arrays into a pipeline
 case, and :func:`generate` runs the cases through ``run_cases`` and yields
 each result's grid, built without OpenCV when the frames are already at the
 output size.
+
+``-acc`` diffuses every ``--fi_step``-th pose frame and fills the frames
+between with FiLM (``utils/frame_interpolation.py``; ``--fi_weights``, or
+the reference's ``./pretrained_model/film_net_fp16.pt``; without weights a
+loud cross-fade), the clip staying on the device between the two; those
+cases run one after another, not through ``run_cases``.
 """
 
 from __future__ import annotations
@@ -26,11 +32,12 @@ import numpy as np
 from aniportrait_tpu_torch.config import load_config
 from aniportrait_tpu_torch.scripts.loader import load_pipeline
 from aniportrait_tpu_torch.utils.draw_util import FaceMeshVisualizer
+from aniportrait_tpu_torch.utils.frame_interpolation import (
+    batch_images_interpolation_tool,
+    init_for_cli,
+)
 from aniportrait_tpu_torch.utils.mp_utils import LMKExtractor
 from aniportrait_tpu_torch.utils.util import get_fps, read_frames, save_videos_grid
-
-ACC_NOT_PORTED = ("-acc (FiLM frame interpolation) is not ported to the PyTorch "
-                  "package yet: ROADMAP M8")
 
 
 def add_common_args(parser: argparse.ArgumentParser, default_config: str,
@@ -63,8 +70,10 @@ def add_common_args(parser: argparse.ArgumentParser, default_config: str,
              "cache k >= 3)")
     parser.add_argument("--fps", type=int, default=default_fps)
     parser.add_argument("-acc", "--accelerate", action="store_true",
-                        help="not ported yet (ROADMAP M8); raises")
+                        help="diffuse every --fi_step-th frame, FiLM-interpolate between")
     parser.add_argument("--fi_step", type=int, default=3)
+    parser.add_argument("--fi_weights", type=str, default=None,
+                        help="FiLM net weights (.pt TorchScript or converted .npz)")
     parser.add_argument("--device", default="cuda",
                         help="where the models run: cuda (default) or cpu")
     return parser
@@ -73,8 +82,6 @@ def add_common_args(parser: argparse.ArgumentParser, default_config: str,
 def parse_args(argv=None):
     parser = add_common_args(argparse.ArgumentParser(),
                              "./configs/prompts/animation.yaml", 30)
-    parser.add_argument("--fi_weights", type=str, default=None,
-                        help="FiLM net weights (with -acc, not ported yet)")
     return parser.parse_args(argv)
 
 
@@ -110,35 +117,60 @@ def reference_pose(ref_rgb: np.ndarray, args, lmk_extractor, vis):
     return face_result, pose
 
 
+def sub_step(args) -> int:
+    """The stride of the diffused frames: ``--fi_step`` under ``-acc``."""
+    return args.fi_step if args.accelerate else 1
+
+
 def prepare_case(ref_rgb: np.ndarray, pose_frames, args, lmk_extractor, vis) -> dict:
     """A ``run_cases`` case from a decoded RGB reference image and pose
-    video: the first ``-L`` pose frames resized to ``-W x -H``."""
+    video: the first ``-L`` pose frames resized to ``-W x -H``, of which
+    every ``--fi_step``-th is diffused under ``-acc`` (``pose_row``: all of
+    them, for the grid)."""
     _, ref_pose = reference_pose(ref_rgb, args, lmk_extractor, vis)
     length = len(pose_frames) if args.L is None else args.L
-    pose_list = [fit(f, args.W, args.H) for f in pose_frames[:length]]
+    pose_row = [fit(f, args.W, args.H) for f in pose_frames[:length]]
+    pose_list = pose_row[::sub_step(args)]
     return dict(ref_image=ref_rgb, pose_images=pose_list, ref_pose_image=ref_pose,
-                kw=dict(video_length=len(pose_list)))
+                kw=dict(video_length=len(pose_list)), pose_row=pose_row)
 
 
 def pose_grid(case: dict, video: np.ndarray, width: int, height: int) -> np.ndarray:
     """(3, L, H, W, 3) float rows: reference, pose, result."""
     ref_row = np.repeat((fit(case["ref_image"], width, height).astype(np.float32)
                          / 255)[None], video.shape[0], axis=0)
-    pose_row = np.stack([p.astype(np.float32) / 255 for p in case["pose_images"]])
-    return np.stack([ref_row, pose_row[: video.shape[0]], video])
+    poses = case.get("pose_row", case["pose_images"])[: video.shape[0]]
+    pose_row = np.stack([p.astype(np.float32) / 255 for p in poses])
+    return np.stack([ref_row, pose_row, video])
 
 
-def generate(pipe, cases, args, grid=pose_grid):
+def generate(pipe, cases, args, grid=pose_grid, interpolator=None):
     """Run ``cases`` through ``pipe.run_cases`` (case i+1's upload and case
     i-1's download overlap case i's denoise) and yield ``(index, grid)``
-    per case, in order."""
+    per case, in order.  Under ``-acc`` each case runs on its own and its
+    clip goes to ``interpolator`` (default ``init_for_cli(--fi_weights)``)
+    on the device, ``--fi_step - 1`` frames between each pair."""
     if args.accelerate:
-        raise NotImplementedError(ACC_NOT_PORTED)
+        yield from _generate_acc(pipe, cases, args, grid, interpolator)
+        return
     cases = [dict(c, key=i) for i, c in enumerate(cases)]
     for key, video in pipe.run_cases(cases, args.W, args.H,
                                      num_inference_steps=args.steps,
                                      guidance_scale=args.cfg, seed=args.seed):
         yield key, grid(cases[key], video, args.W, args.H)
+
+
+def _generate_acc(pipe, cases, args, grid, interpolator):
+    if interpolator is None:
+        interpolator = init_for_cli(args.fi_weights, args.device)
+    on_device = getattr(interpolator, "device_io", False)
+    for key, case in enumerate(cases):
+        video = pipe(case["ref_image"], case["pose_images"], case.get("ref_pose_image"),
+                     args.W, args.H, case["kw"]["video_length"], args.steps, args.cfg,
+                     seed=args.seed, return_device=on_device)
+        video = batch_images_interpolation_tool(video, interpolator,
+                                                inter_frames=args.fi_step - 1)[0]
+        yield key, grid(case, video, args.W, args.H)
 
 
 def output_dir(args) -> tuple:
@@ -150,10 +182,11 @@ def output_dir(args) -> tuple:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.accelerate:
-        raise NotImplementedError(ACC_NOT_PORTED)
     import cv2
 
+    # the interpolator first: a FiLM path that does not load fails before
+    # any diffusion model is built
+    interpolator = init_for_cli(args.fi_weights, args.device) if args.accelerate else None
     config = load_config(args.config)
     pipe = load_pipe(config, args)
     save_dir, time_str = output_dir(args)
@@ -172,7 +205,7 @@ def main(argv=None):
                               pose_name=Path(pose_video_path).stem.replace("_kps", ""),
                               src_fps=get_fps(pose_video_path)))
 
-    for key, grid in generate(pipe, cases, args):
+    for key, grid in generate(pipe, cases, args, interpolator=interpolator):
         meta = metas[key]
         save_path = (f"{save_dir}/{meta['ref_name']}_{meta['pose_name']}"
                      f"_{args.H}x{args.W}_{int(args.cfg)}_{time_str}.mp4")

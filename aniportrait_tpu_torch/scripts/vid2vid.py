@@ -11,7 +11,9 @@ delta from the most neutral source frame); the projected vertices are drawn
 as the pose video.  A 60 fps source is halved to 30 fps.  Each case writes
 a 3-row (reference / result / source) grid mp4, with the source's audio
 muxed in where ffmpeg is present.  The models run on the card unless
-``--device cpu`` asks for the CPU.
+``--device cpu`` asks for the CPU.  ``-acc`` takes landmarks from every
+``--fi_step``-th source frame and FiLM-interpolates the frames between, as
+``pose2vid`` does.
 """
 
 from __future__ import annotations
@@ -24,15 +26,16 @@ import numpy as np
 
 from aniportrait_tpu_torch.config import load_config
 from aniportrait_tpu_torch.scripts.pose2vid import (
-    ACC_NOT_PORTED,
     add_common_args,
     fit,
     generate,
     load_pipe,
     output_dir,
     reference_pose,
+    sub_step,
 )
 from aniportrait_tpu_torch.utils.draw_util import FaceMeshVisualizer
+from aniportrait_tpu_torch.utils.frame_interpolation import init_for_cli
 from aniportrait_tpu_torch.utils.mp_utils import LMKExtractor
 from aniportrait_tpu_torch.utils.pose_util import (
     euler_and_translation_to_matrix,
@@ -83,7 +86,8 @@ def prepare_case(ref_rgb: np.ndarray, source_images, src_fps: float, args,
     """(case, output fps) from a decoded RGB reference image and source
     video; the case also carries the grid's source frames (``src_frames``).
     Landmarks are taken from the first ``-L`` source frames (after halving a
-    60 fps source) up to the first frame without a face."""
+    60 fps source; every ``--fi_step``-th of them under ``-acc``) up to the
+    first frame without a face."""
     import cv2
 
     face_result, ref_pose = reference_pose(ref_rgb, args, lmk_extractor, vis)
@@ -93,7 +97,7 @@ def prepare_case(ref_rgb: np.ndarray, source_images, src_fps: float, args,
     last = len(source_images) if args.L is None else args.L * step
     source_results = []
     frame_shape = source_images[0].shape[:2]
-    for src_rgb in source_images[:last:step]:
+    for src_rgb in source_images[:last:step * sub_step(args)]:
         src_bgr = cv2.cvtColor(src_rgb, cv2.COLOR_RGB2BGR)
         frame_shape = src_bgr.shape[:2]
         res = lmk_extractor(src_bgr)
@@ -125,10 +129,9 @@ def reenact_grid(case: dict, video: np.ndarray, width: int, height: int) -> np.n
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.accelerate:
-        raise NotImplementedError(ACC_NOT_PORTED)
     import cv2
 
+    interpolator = init_for_cli(args.fi_weights, args.device) if args.accelerate else None
     config = load_config(args.config)
     pipe = load_pipe(config, args)
     save_dir, time_str = output_dir(args)
@@ -147,7 +150,7 @@ def main(argv=None):
                               pose_name=Path(source_video_path).stem, src_fps=src_fps,
                               source_video_path=source_video_path))
 
-    for key, grid in generate(pipe, cases, args, reenact_grid):
+    for key, grid in generate(pipe, cases, args, reenact_grid, interpolator):
         meta = metas[key]
         noaudio = (f"{save_dir}/{meta['ref_name']}_{meta['pose_name']}"
                    f"_{args.H}x{args.W}_{int(args.cfg)}_{time_str}_noaudio.mp4")

@@ -1,15 +1,17 @@
 """Quality gate of the opt-in approximations, the port's copy of
-``aniportrait_tpu/utils/quality_gate.py`` (the table loader and
-:func:`enforce_approximation_gate`).
+``aniportrait_tpu/utils/quality_gate.py`` (the table loader,
+:func:`enforce_approximation_gate` and :func:`check_regression`).
 
 The pipeline has two opt-in approximations (``pipelines/pose2vid.py``):
 ``encoder_cache_interval`` (down + mid features reused between refreshes)
 and ``window_fusion`` (motion-module-internal overlap averaging), and the
 ``context_rotate`` experiment.  Their divergence from the exact path is the
 table in the repository's ``docs/quality_gate*.json``, read here as files.
-Those dB were measured on the JAX package's path, not on this port; the
-port's approximations are held to that path by the parity tests of
-``tests/test_torch_pipeline_options.py``, so the table stands for them.
+Those dB were measured on the JAX package's path; the port's approximations
+are held to that path by the parity tests of
+``tests/test_torch_pipeline_options.py``, and
+``scripts/quality_speed_gate.py --check`` measures the port's own rows on
+the card and holds them to the table (:func:`check_regression`).
 The entry points call :func:`enforce_approximation_gate`, which prints the
 measured dB with every approximate run and refuses encoder cache k >= 3
 without ``force``.
@@ -26,6 +28,12 @@ import glob
 import json
 import os
 from typing import Dict, List, Optional
+
+# divergence regression tolerances for --check (a kernel change that
+# silently hurts an approximate path should fail CI, not ship)
+PSNR_REGRESSION_DB = 1.5
+SSIM_REGRESSION = 0.002
+
 
 def _docs_dir() -> str:
     here = os.path.dirname(os.path.abspath(__file__))
@@ -137,3 +145,30 @@ def enforce_approximation_gate(
             )
         warn(f"encoder cache k={k} FORCED past the gate ({measured} at k=3)")
     return warnings
+
+
+def check_regression(
+    fresh_rows: List[dict], table_dir: Optional[str] = None
+) -> List[str]:
+    """Compare freshly measured gate rows against the stored table;
+    returns a list of regression messages (empty = pass).  Used by
+    ``scripts/quality_speed_gate.py --check``."""
+    table = load_gate_table(table_dir)
+    problems = []
+    for row in fresh_rows:
+        if not row.get("psnr"):
+            continue
+        base = table.get(row["mode"]) or _lookup(table, row["mode"])
+        if not base or not base.get("psnr"):
+            continue
+        if row["psnr"] < base["psnr"] - PSNR_REGRESSION_DB:
+            problems.append(
+                f"{row['mode']}: PSNR regressed {base['psnr']:.2f} -> "
+                f"{row['psnr']:.2f} dB (tolerance {PSNR_REGRESSION_DB})"
+            )
+        if row["ssim"] < base["ssim"] - SSIM_REGRESSION:
+            problems.append(
+                f"{row['mode']}: SSIM regressed {base['ssim']:.4f} -> "
+                f"{row['ssim']:.4f} (tolerance {SSIM_REGRESSION})"
+            )
+    return problems

@@ -2,9 +2,9 @@
 own copy.
 
 The same rules as the JAX package's ``aniportrait_tpu/weights/convert.py``
-(UNet with motion modules, VAE, CLIP vision tower, PoseGuider, and the audio
+(UNet with motion modules, VAE, CLIP vision tower, PoseGuider, the audio
 models: wav2vec2 with its weight-normed positional conv, the Audio2Mesh and
-Audio2Pose heads), kept here so that the port imports nothing of that
+Audio2Pose heads, and the FiLM frame interpolator), kept here so that the port imports nothing of that
 package.  Each rule is
 ``(torch key regex, flax path template, layout transform)``; a template
 ``skip`` marks a key without a flax counterpart and ``stats:`` one that lives
@@ -511,6 +511,56 @@ def _conv_bn_rules(conv_tp: str, bn_tp: str, fp: str) -> List[Rule]:
         (rf"{bn_tp}\.running_var", f"stats:{fp}/bn/var", t_none),
         (rf"{bn_tp}\.num_batches_tracked", "skip", t_none),
     ]
+
+
+# ----------------------------------------------------------------- FiLM
+def film_rules() -> List[Rule]:
+    """FiLM frame-interpolation net (``film_net_fp16.pt``; dajes/
+    frame-interpolation-pytorch module layout, the names of
+    ``models/film_net.py``).  TorchScript blobs expose the same state_dict
+    keys via ``.state_dict()`` after ``torch.jit.load``."""
+    return [
+        (r"extract\.extract_sublevels\.convs\.(\d+)\.([01])\.weight",
+         r"extract/sub/conv_\1_\2/kernel", t_conv2d),
+        (r"extract\.extract_sublevels\.convs\.(\d+)\.([01])\.bias",
+         r"extract/sub/conv_\1_\2/bias", t_none),
+        (r"predict_flow\.predictors\.(\d+)\.convs\.(\d+)\.weight",
+         r"predict_flow/predictor_\1/conv_\2/kernel", t_conv2d),
+        (r"predict_flow\.predictors\.(\d+)\.convs\.(\d+)\.bias",
+         r"predict_flow/predictor_\1/conv_\2/bias", t_none),
+        (r"predict_flow\.predictors\.(\d+)\.conv_bottleneck\.weight",
+         r"predict_flow/predictor_\1/conv_bottleneck/kernel", t_conv2d),
+        (r"predict_flow\.predictors\.(\d+)\.conv_bottleneck\.bias",
+         r"predict_flow/predictor_\1/conv_bottleneck/bias", t_none),
+        (r"predict_flow\.predictors\.(\d+)\.conv_out\.weight",
+         r"predict_flow/predictor_\1/conv_out/kernel", t_conv2d),
+        (r"predict_flow\.predictors\.(\d+)\.conv_out\.bias",
+         r"predict_flow/predictor_\1/conv_out/bias", t_none),
+        (r"predict_flow\.shared_predictor\.convs\.(\d+)\.weight",
+         r"predict_flow/predictor_shared/conv_\1/kernel", t_conv2d),
+        (r"predict_flow\.shared_predictor\.convs\.(\d+)\.bias",
+         r"predict_flow/predictor_shared/conv_\1/bias", t_none),
+        (r"predict_flow\.shared_predictor\.conv_bottleneck\.weight",
+         r"predict_flow/predictor_shared/conv_bottleneck/kernel", t_conv2d),
+        (r"predict_flow\.shared_predictor\.conv_bottleneck\.bias",
+         r"predict_flow/predictor_shared/conv_bottleneck/bias", t_none),
+        (r"predict_flow\.shared_predictor\.conv_out\.weight",
+         r"predict_flow/predictor_shared/conv_out/kernel", t_conv2d),
+        (r"predict_flow\.shared_predictor\.conv_out\.bias",
+         r"predict_flow/predictor_shared/conv_out/bias", t_none),
+        (r"fuse\.up_convs\.(\d+)\.weight", r"fuse/up_conv_\1/kernel", t_conv2d),
+        (r"fuse\.up_convs\.(\d+)\.bias", r"fuse/up_conv_\1/bias", t_none),
+        (r"fuse\.convs\.(\d+)\.([01])\.weight", r"fuse/conv_\1_\2/kernel",
+         t_conv2d),
+        (r"fuse\.convs\.(\d+)\.([01])\.bias", r"fuse/conv_\1_\2/bias", t_none),
+        (r"fuse\.output_conv\.weight", r"fuse/output_conv/kernel", t_conv2d),
+        (r"fuse\.output_conv\.bias", r"fuse/output_conv/bias", t_none),
+    ]
+
+
+def convert_film(sd: Dict[str, Any]) -> Tuple[Dict, List[str]]:
+    params, _, unused = apply_rules(sd, film_rules())
+    return params, unused
 
 
 # --------------------------------------------------------------- wav2vec2

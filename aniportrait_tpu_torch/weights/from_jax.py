@@ -96,6 +96,9 @@ def audio2mesh_from_jax(module: nn.Module, params: Dict[str, Any]):
     return state_dict_from_jax(module, load.audio2mesh_rules(), params)
 
 
+def film_from_jax(module: nn.Module, params: Dict[str, Any]):
+    return state_dict_from_jax(module, cv.film_rules(), params)
+
 def audio2pose_from_jax(module: nn.Module, params: Dict[str, Any]):
     """The decoder's packed ``in_proj`` from the JAX package's separate
     projections: ``self_q | self_k | self_v``, and ``cross_v`` behind the

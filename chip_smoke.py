@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phase tok-ab     # guards, token-kernel A/B, K9 path
     python3 chip_smoke.py --phase entry      # the loader, pose2vid CLI and bench entries
     python3 chip_smoke.py --phase audio      # the audio-driven path and its serving core
+    python3 chip_smoke.py --phase quality    # LPIPS, FiLM, -acc bench, weight validation, gates
 
 Phases, each of which fails the run (nonzero exit) on any error:
 
@@ -120,6 +121,20 @@ Phases, each of which fails the run (nonzero exit) on any error:
    K5a twice); then two steps with 8-bit AdamW, whose state bytes are
    printed against float32 AdamW's.  The kernel phase times K5a and K5b at
    this path's 16 rows (``K5a.stage2``, ``K5b.stage2``).
+11. quality (``quality``, run after the audio phase): LPIPS (random float32
+   weights from a seed) on the card against the CPU on 8 frames at 512 px
+   (``LPIPS_REL_TOL``, TF32 off), timed; FiLM at full width in float32 on
+   the card against the CPU on one 128x128 pair (``FILM_TOL`` of the largest
+   output, TF32 off), and in bf16 at 512x512, batch 4: ms a midpoint frame
+   and peak memory; the bench at ``audio2vid_acc --pose-maps fixture`` in its
+   own process (16 of 48 frames diffused, FiLM fills 46); full-size
+   checkpoint files written as the entry phase writes them, with the audio
+   checkpoints and a traced random FiLM blob, through
+   ``scripts/validate_weights.py`` (0), and with one key dropped (1, naming
+   it); and ``scripts/quality_speed_gate.py --check`` at full size (25
+   steps, 16 and 24 frames): the approximations' PSNR / SSIM against the
+   exact path, held to ``docs/quality_gate*.json``, and ``compare_videos``
+   (LPIPS on the card) on its exact and encoder-cache clips.
 
 The last line of standard output is the device summary JSON; the line before
 it lists the kernels.  Without a CUDA device the script exits nonzero.
@@ -1129,9 +1144,10 @@ def write_checkpoints(modules, root, base=None, safetensors: bool = False) -> di
     return paths
 
 
-def _entry_bench(argv: list) -> dict:
+def _entry_bench(argv: list, expect: str | None = None) -> dict:
     """One bench run in its own process (its standard output is exactly the
-    one JSON line); returns the line, parsed."""
+    one JSON line, its standard error holds ``expect``); returns the line,
+    parsed."""
     import os
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1149,6 +1165,8 @@ def _entry_bench(argv: list) -> dict:
     row = json.loads(lines[0])
     if sorted(row) != ["metric", "unit", "value", "vs_baseline"] or not row["value"] > 0:
         raise SystemExit(f"entry: bench {argv} printed {row}")
+    if expect is not None and expect not in res.stderr:
+        raise SystemExit(f"entry: bench {argv} did not say {expect!r}")
     log(f"[entry] bench {' '.join(argv) or '(default)'} on {gpu_line()} ({dt:.1f} s "
         f"in all): {lines[0]}")
     return row
@@ -1546,6 +1564,208 @@ def audio_phase(results: dict) -> None:
         raise SystemExit(f"audio: loaded weights differ from their source: {differ[:5]}")
     tmp_dir.cleanup()
     log(f"[audio] phase time {time.perf_counter() - t_phase:.1f} s")
+
+
+# ------------------------------------------------------------------ quality
+LPIPS_REL_TOL = 1e-4  # float32 LPIPS, card against CPU, of the largest distance
+FILM_TOL = 1e-4  # float32 FiLM, card against CPU, of the largest |output|
+
+
+def _random_lpips_weights(seed: int = 0) -> dict:
+    """LPIPS weights in the ``.npz`` layout of ``convert_lpips_weights``,
+    seeded (the pretrained ones are not in the repository)."""
+    import numpy as np
+
+    from aniportrait_tpu_torch.utils.quality import _ALEX_CONVS
+
+    rs = np.random.RandomState(seed)
+    w, cin = {}, 3
+    for i, (cout, k, _, _) in enumerate(_ALEX_CONVS):
+        w[f"conv{i}_w"] = (rs.randn(k, k, cin, cout) * np.sqrt(2.0 / (k * k * cin))
+                           ).astype(np.float32)
+        w[f"conv{i}_b"] = (rs.randn(cout) * 0.01).astype(np.float32)
+        w[f"lin{i}"] = rs.rand(cout).astype(np.float32)
+        cin = cout
+    return w
+
+
+def _py_config(path: str, **values) -> str:
+    """A prompt config as an importable ``.py`` file (no PyYAML needed)."""
+    with open(path, "w") as f:
+        f.writelines(f"{k} = {v!r}\n" for k, v in values.items())
+    return path
+
+
+def _validate_on_card(root: str) -> None:
+    """Full-size checkpoint files (bf16 diffusion models as the entry phase
+    writes them, float32 audio checkpoints with their encoders, a traced
+    random FiLM blob) through ``validate_weights``: exit 0; and with one
+    key of ``pose_guider.pth`` dropped: exit 1, naming the key."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from aniportrait_tpu_torch import factory
+    from aniportrait_tpu_torch.audio.audio2mesh import Audio2MeshModel
+    from aniportrait_tpu_torch.audio.audio2pose import Audio2PoseModel
+    from aniportrait_tpu_torch.scripts import validate_weights
+    from aniportrait_tpu_torch.utils.frame_interpolation import random_film
+
+    t0 = time.perf_counter()
+    modules = factory.build_models("full", "cuda", torch.bfloat16, seed=7)
+    paths = write_checkpoints(modules, root)
+    del modules
+    audio = write_audio_checkpoints(Audio2MeshModel(), Audio2PoseModel(), root)
+    film = random_film(0).eval()
+    x = torch.rand(1, 3, 64, 64)
+    with torch.no_grad():
+        torch.jit.save(torch.jit.trace(film, (x, x, torch.full((1,), 0.5))),
+                       os.path.join(root, "film_net_fp16.pt"))
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root)
+                 for f in fs)
+    log(f"[quality] full-size checkpoint files written ({nbytes / 2**30:.2f} GiB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    infer = ENTRY_CONFIG["inference_config"]
+    cfg = _py_config(os.path.join(root, "prompt.py"), inference_config=infer, **paths)
+    acfg = dict(AUDIO_CONFIG["audio_inference_config"], pretrained_model=audio)
+    audio_cfg = _py_config(os.path.join(root, "audio.py"), audio_inference_config=acfg)
+
+    def run(argv):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = validate_weights.main(argv)
+        return rc, out.getvalue(), time.perf_counter() - t0
+
+    rc, out, dt = run(["--config", cfg, "--audio-config", audio_cfg,
+                       "--film", os.path.join(root, "film_net_fp16.pt")])
+    checked = [line for line in out.splitlines() if line.startswith("checked")]
+    log(f"[quality] validate_weights on the full-size files: exit {rc} in {dt:.1f} s; "
+        f"{'; '.join(checked)}")
+    if rc != 0 or len(checked) != 8:
+        raise SystemExit(f"quality: validate_weights failed on a complete set:\n{out}")
+    state = torch.load(paths["pose_guider_path"], weights_only=True)
+    dropped = sorted(state)[len(state) // 2]
+    del state[dropped]
+    bad_pg = os.path.join(root, "pose_guider_dropped.pth")
+    torch.save(state, bad_pg)
+    bad = _py_config(os.path.join(root, "prompt_dropped.py"), inference_config=infer,
+                     **{**paths, "pose_guider_path": bad_pg})
+    rc, out, dt = run(["--config", bad])
+    problems = [line for line in out.splitlines() if line.startswith(" - ")]
+    log(f"[quality] validate_weights with {dropped!r} dropped: exit {rc} in {dt:.1f} s; "
+        f"{problems}")
+    if rc != 1 or not any(dropped in line for line in problems):
+        raise SystemExit(f"quality: validate_weights missed the dropped key {dropped}")
+
+
+def quality_phase() -> None:
+    """LPIPS and FiLM on the card against the CPU and timed, the bench's
+    ``audio2vid_acc``, weight validation on full-size files, and the
+    approximations' quality gate (``quality_speed_gate --check``)."""
+    import copy
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aniportrait_tpu_torch.scripts import quality_speed_gate
+    from aniportrait_tpu_torch.utils.frame_interpolation import _load_film, random_film
+    from aniportrait_tpu_torch.utils.quality import LPIPS, compare_videos
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    rs = np.random.RandomState(11)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # LPIPS, float32: card against CPU, 8 frames at 512 px
+    weights = _random_lpips_weights(0)
+    a, b = (rs.randint(0, 256, (8, 512, 512, 3), np.uint8) for _ in range(2))
+    gpu, cpu = LPIPS(weights, device="cuda"), LPIPS(weights, device="cpu")
+    got, want = gpu(a, b), cpu(a, b)
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    ta, tb = (torch.from_numpy(x).cuda() for x in (a, b))
+    ms = _time_ms(lambda: gpu(ta, tb), 5)
+    log(f"[quality] LPIPS (float32, 8 frames at 512 px) card vs CPU: distances "
+        f"{np.round(got, 5).tolist()}, max rel err {err:.2e} (tol {LPIPS_REL_TOL:.0e}); "
+        f"{ms:.2f} ms for 8 frame pairs on {gpu_line()} ({ms / 8:.3f} ms a pair)")
+    if not err <= LPIPS_REL_TOL:
+        raise SystemExit(f"quality: LPIPS card vs CPU {err:.2e}")
+
+    # FiLM, float32 at full width: card against CPU on one 128x128 pair
+    film = random_film(0).eval()
+    x0, x1 = (torch.from_numpy(rs.rand(1, 3, 128, 128).astype(np.float32)) for _ in range(2))
+    with torch.no_grad():
+        want = film(x0, x1, torch.full((1,), 0.5))
+        film_gpu = copy.deepcopy(film).cuda()
+        got = film_gpu(x0.cuda(), x1.cuda(), torch.full((1,), 0.5, device="cuda")).cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    log(f"[quality] FiLM (float32, full width, 128x128) card vs CPU: max err {err:.2e} "
+        f"of the largest |output| {scale:.3f} (tol {FILM_TOL:.0e})")
+    if not err <= FILM_TOL:
+        raise SystemExit(f"quality: FiLM card vs CPU {err:.2e}")
+    del film, film_gpu
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+
+    # FiLM, bf16 at 512x512, batch 4 (the -acc path's loader and batch)
+    fn = _load_film(None, random_init=True, device="cuda")
+    pairs = [torch.from_numpy(rs.rand(4, 512, 512, 3).astype(np.float32)).cuda()
+             for _ in range(2)]
+    fn(*pairs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = _time_ms(lambda: fn(*pairs), 5)
+    peak = torch.cuda.max_memory_allocated() - base
+    out = fn(*pairs)
+    if out.shape != (4, 512, 512, 3) or not torch.isfinite(out).all():
+        raise SystemExit(f"quality: bf16 FiLM gave {tuple(out.shape)}")
+    log(f"[quality] FiLM (bf16, 512x512, batch 4) on {gpu_line()}: {ms:.2f} ms a call, "
+        f"{ms / 4:.2f} ms a midpoint frame; peak {peak / 2**30:.2f} GiB above the inputs "
+        f"and weights")
+    del fn, pairs, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the bench's audio2vid_acc (its own process)
+    _entry_bench(["--config", "audio2vid_acc", "--pose-maps", "fixture"],
+                 expect="output 46 frames")
+
+    # weight validation on full-size files
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
+        _validate_on_card(tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the approximations' quality gate at full size
+    out_json = os.path.join(root, "build", "quality_gate_rows.json")
+    clips: dict = {}
+    t0 = time.perf_counter()
+    rc = quality_speed_gate.main(["--steps", "25", "--frames", "16", "--win-frames", "24",
+                                  "--check", "--out", out_json], clips)
+    dt = time.perf_counter() - t0
+    with open(out_json) as f:
+        rows = json.load(f)
+    log(f"[quality] quality_speed_gate --check (full size, bf16, 25 steps, 16 and 24 "
+        f"frames) on {gpu_line()}: exit {rc} in {dt:.1f} s; rows {json.dumps(rows)}")
+    if rc != 0:
+        raise SystemExit("quality: quality_speed_gate --check found a regression")
+    exact, cached = clips["pose2vid exact (k=1)"], clips["encoder cache k=2"]
+    with tempfile.NamedTemporaryFile(suffix=".npz", dir=os.path.join(root, "build")) as f:
+        np.savez(f, **weights)
+        f.flush()
+        report = compare_videos(cached, exact, lpips_weights=f.name, device="cuda")
+    row = next(r for r in rows if r["mode"] == "encoder cache k=2")
+    log(f"[quality] compare_videos(encoder cache k=2, exact), LPIPS on the card: {report}")
+    if (report["frames"] != 16 or abs(report["psnr"] - row["psnr"]) > 1e-9
+            or not 0 <= report["lpips"] < 1e3):
+        raise SystemExit(f"quality: compare_videos gave {report} against the row {row}")
 
 
 # ----------------------------------------------------------------- training
@@ -2178,7 +2398,7 @@ def folded_small_seq_phase(results: dict) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase", choices=("all", "kernels", "long-clip", "train", "tok-ab",
-                                            "entry", "audio"),
+                                            "entry", "audio", "quality"),
                         default="all")
     args = parser.parse_args()
 
@@ -2206,6 +2426,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     if args.phase in ("all", "audio"):
         audio_phase(results)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.phase in ("all", "quality"):
+        quality_phase()
         gc.collect()
         torch.cuda.empty_cache()
     if args.phase in ("all", "long-clip"):

@@ -54,6 +54,7 @@ from aniportrait_tpu_torch.weights import from_jax
 from scripts import audio2vid as jax_audio2vid
 from test_audio_stack import TINY_W2V
 from test_torch_cli import faces, modules  # noqa: F401  (fixtures)
+from test_torch_film import small_film  # noqa: F401  (fixture)
 from test_torch_modules import init_jax, one_thread, run_jax  # noqa: F401 (one_thread: autouse)
 from test_torch_pipeline import opencv_portable
 
@@ -328,14 +329,14 @@ def _write_inputs(tmp_path, secs=0.5):
     return str(cfg)
 
 
-def test_audio2vid_cli_matches_jax(monkeypatch, tmp_path, modules, faces):  # noqa: F811
+def _audio2vid_grids(monkeypatch, tmp_path, modules, faces, extra=()):  # noqa: F811
     """Each side's ``main()`` on the same prompt YAML, reference PNG and
-    seeded WAV (0.5 s: 15 frames, -L 4), with the micro pipeline and tiny
-    audio models over the same weights, the fixture's landmarks, the same
-    speaker draw and numpy noise.  Audio2Mesh's ``out_fn`` is zero as the
-    reference initialises it, so the projected mesh moves with the head
-    pose only and both sides draw the same pose maps; the grids' reference
-    and pose rows are equal, the result rows within one uint8 level."""
+    seeded WAV (0.5 s: 15 frames), with the micro pipeline and tiny audio
+    models over the same weights, the fixture's landmarks, the same speaker
+    draw and numpy noise; returns the grid each side writes.  Audio2Mesh's
+    ``out_fn`` is zero as the reference initialises it, so the projected
+    mesh moves with the head pose only and both sides draw the same pose
+    maps."""
     monkeypatch.chdir(tmp_path)
     cfg = _write_inputs(tmp_path)
     jm, pm = modules
@@ -350,8 +351,7 @@ def test_audio2vid_cli_matches_jax(monkeypatch, tmp_path, modules, faces):  # no
     port_a2p = Audio2PoseModel(**DECODER, wav2vec2=TINY_W2V).eval()
     port_a2p.load_state_dict(from_jax.audio2pose_from_jax(port_a2p, a2p_params))
 
-    argv = ["--config", cfg, "-W", "64", "-H", "64", "-L", "4", "--steps", "2",
-            "--seed", "3"]
+    argv = ["--config", cfg, "-W", "64", "-H", "64", "--steps", "2", "--seed", "3", *extra]
     noise = lambda shape: np.random.RandomState(0).randn(*shape).astype(np.float32)
     grids = {}
 
@@ -401,11 +401,28 @@ def test_audio2vid_cli_matches_jax(monkeypatch, tmp_path, modules, faces):  # no
     (gp, name_p, fps_p), = grids["port"]
     untimed = lambda name: re.sub(r"_\d{4}(?=(_noaudio)?\.mp4$)", "", name)
     assert (untimed(name_p), fps_p) == (untimed(name_j), fps_j)
-    assert gp.shape == gj.shape == (3, 4, 64, 64, 3)
+    assert gp.shape == gj.shape
     np.testing.assert_array_equal(gp[0], gj[0])
     np.testing.assert_array_equal(gp[1], gj[1])
     assert (gp[1].sum(-1) > 0).sum() > 100  # the mesh is drawn
     assert np.abs(gp[2] - gj[2]).max() <= 1.0 / 255 + 1e-6
+    return gp
+
+
+def test_audio2vid_cli_matches_jax(monkeypatch, tmp_path, modules, faces):  # noqa: F811
+    """-L 4: the grids' reference and pose rows are equal, the result rows
+    within one uint8 level."""
+    grid = _audio2vid_grids(monkeypatch, tmp_path, modules, faces, ["-L", "4"])
+    assert grid.shape == (3, 4, 64, 64, 3)
+
+
+def test_audio2vid_acc_cli_matches_jax(monkeypatch, tmp_path, modules, faces,  # noqa: F811
+                                       small_film):
+    """``-acc --fi_step 2 -L 5`` with the small FiLM on both sides: frames 0,
+    2, 4 diffused and 5 out, the pose row at the full frame rate."""
+    grid = _audio2vid_grids(monkeypatch, tmp_path, modules, faces,
+                            ["-L", "5", "-acc", "--fi_step", "2", "--fi_weights", small_film])
+    assert grid.shape == (3, 5, 64, 64, 3)
 
 
 def test_audio2vid_acc_raises_before_any_model_is_built(monkeypatch):
@@ -414,5 +431,5 @@ def test_audio2vid_acc_raises_before_any_model_is_built(monkeypatch):
 
     monkeypatch.setattr(port_audio2vid, "load_audio_models", no_models)
     monkeypatch.setattr(port_pose2vid, "load_pipeline", no_models)
-    with pytest.raises(NotImplementedError, match="M8"):
-        port_audio2vid.main(["-acc", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="missing_film_net.pt"):
+        port_audio2vid.main(["-acc", "--fi_weights", "missing_film_net.pt", "--device", "cpu"])

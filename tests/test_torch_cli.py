@@ -7,12 +7,14 @@ extractor by ``mp_utils``'s callable backend fed from
 tests/fixtures/landmark_golden.npz, and the initial noise by one numpy
 draw.  The grids each side hands to ``save_videos_grid`` must match: the
 reference and pose/source rows exactly, the result row within the bounds
-of tests/test_torch_pipeline.py (latents 1e-3, frames one uint8 level).  ``-acc`` raises before any model is built.
+of tests/test_torch_pipeline.py (latents 1e-3, frames one uint8 level).  ``-acc`` with FiLM
+weights that are not there raises before any model is built
+(tests/test_torch_film.py holds ``-acc`` to the JAX CLI).
 
 The bench entry: ``--tiny`` prints exactly one JSON line with the four
 keys; without a card and without ``--tiny``/``--device cpu`` it fails and
-prints nothing, also at the audio configurations; the configurations that
-wait for other modules raise with their ROADMAP item.
+prints nothing, also at the audio configurations; ``--quality`` goes to the
+quality gate CLI.
 """
 
 import json
@@ -187,10 +189,11 @@ def test_acc_raises_before_any_model_is_built(cli, monkeypatch):
         raise AssertionError("a model was built")
 
     monkeypatch.setattr(port_pose2vid, "load_pipeline", no_models)
-    with pytest.raises(NotImplementedError, match="M8"):
-        cli.main(["-acc", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="M8"):
-        next(port_pose2vid.generate(None, [], cli.parse_args(["-acc"])))
+    argv = ["-acc", "--fi_weights", "missing_film_net.pt"]
+    with pytest.raises(FileNotFoundError, match="missing_film_net.pt"):
+        cli.main([*argv, "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="missing_film_net.pt"):
+        next(port_pose2vid.generate(None, [dict()], cli.parse_args([*argv, "--device", "cpu"])))
 
 
 def test_bench_tiny_prints_one_json_line():
@@ -217,6 +220,7 @@ def test_bench_without_a_card_fails_and_prints_nothing():
     for argv in (["--config", "audio2mesh"], ["--config", "audio2vid", "--pose-maps", "fixture"]):
         with pytest.raises(SystemExit, match="no CUDA device"):
             port_bench.main(argv)
-    for argv, item in ((["--config", "audio2vid_acc"], "M8"), (["--quality", "a", "b"], "M13")):
-        with pytest.raises(NotImplementedError, match=item):
-            port_bench.main(argv)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        port_bench.main(["--config", "audio2vid_acc", "--pose-maps", "fixture"])
+    with pytest.raises(SystemExit, match="no frames read"):
+        port_bench.main(["--quality", "missing_a", "missing_b"])

@@ -1,6 +1,7 @@
 """The port's own copies of JAX-free modules of the JAX package equal the
-originals: the weight-naming rules (weights/convert.py) key for key and
-transform for transform, in order; the context-window tables
+originals: the weight-naming rules (weights/convert.py, the FiLM rules
+included) key for key and transform for transform, in order (the quality
+metrics and ``check_regression``: tests/test_torch_quality.py); the context-window tables
 (pipelines/context.py) entry for entry; and the entry points' host front
 end (config, the quality gate, the landmark graph, pose math and
 retargeting, the pose drawing, the IO helpers, the audio loading) output for
@@ -56,6 +57,7 @@ RULE_LISTS = [
     ("_resnet_rules", (r"mid_block\.resnets\.0", "mid_resnet_0")),
     ("_motion_rules", (r"up_blocks\.1\.motion_modules\.2", "up_1_motion_2")),
     ("wav2vec2_rules", ("audio_encoder.",)),
+    ("film_rules", ()),
 ]
 
 

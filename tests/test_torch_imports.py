@@ -4,7 +4,8 @@ flax, aniportrait_tpu, the root scripts package nor the root bench.py (or
 any module under them) is in sys.modules.  The GPU smoke's path (factory,
 pipeline, kernels, a whole-clip generation; the loader and the pose2vid
 CLI's generation; the audio models, the audio loader and the serving core's
-request on arrays) loads none of them either."""
+request on arrays; FiLM interpolation on a clip tensor, LPIPS and the model
+trees of weight validation) loads none of them either."""
 
 import os
 import pkgutil
@@ -26,7 +27,13 @@ def test_port_imports_no_jax():
                                               "aniportrait_tpu_torch.")
     )
     assert {"aniportrait_tpu_torch.pipelines.pose2vid", "aniportrait_tpu_torch.audio.wav2vec2",
-            "aniportrait_tpu_torch.scripts.serve", "aniportrait_tpu_torch.scripts.app"} <= set(names)
+            "aniportrait_tpu_torch.scripts.serve", "aniportrait_tpu_torch.scripts.app",
+            "aniportrait_tpu_torch.models.film_net", "aniportrait_tpu_torch.utils.quality",
+            "aniportrait_tpu_torch.utils.frame_interpolation",
+            "aniportrait_tpu_torch.weights.validate",
+            "aniportrait_tpu_torch.scripts.quality_gate",
+            "aniportrait_tpu_torch.scripts.quality_speed_gate",
+            "aniportrait_tpu_torch.scripts.validate_weights"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -69,6 +76,19 @@ def test_smoke_path_loads_nothing_of_the_jax_package():
         "video = serving_core.animate(models, sample, face, img, None, size=64, steps=1,\n"
         "                             length=2, seed=0, pose_maps=[img])\n"
         "assert video.shape == (2, 64, 64, 3), video.shape\n"
+        "from aniportrait_tpu_torch.scripts import quality_speed_gate, validate_weights\n"
+        "from aniportrait_tpu_torch.utils import frame_interpolation as fi, quality\n"
+        "from aniportrait_tpu_torch.weights import validate\n"
+        "film = fi._load_film(None, random_init=True, device='cpu')\n"
+        "clip = torch.from_numpy(np.stack([img, img]))\n"
+        "out = fi.batch_images_interpolation_tool(clip, film, 2, return_device=True)\n"
+        "assert out.shape == (1, 4, 64, 64, 3), out.shape\n"
+        "w = {f'conv{i}_w': np.zeros((k, k, c0, c1), np.float32) for i, (c1, k, _, _), c0 in\n"
+        "     zip(range(5), quality._ALEX_CONVS, (3, 64, 192, 384, 256))}\n"
+        "w.update({f'conv{i}_b': np.zeros(c, np.float32) for i, (c, *_) in enumerate(quality._ALEX_CONVS)})\n"
+        "w.update({f'lin{i}': np.ones(c, np.float32) for i, (c, *_) in enumerate(quality._ALEX_CONVS)})\n"
+        "assert quality.LPIPS(w)(img, img).shape == (1,)\n"
+        "assert 'film' in validate.fullsize_model_trees('micro')\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {REFUSED!r})\n"
         "assert not bad, bad\n"
     )

@@ -10,7 +10,11 @@ checkpoints, the CLIs).
     the K3 route (``NatTemporal``).
 (b) The stage-2 freeze mask at full size counts JAX ``_freeze_mask_stage2``'s
     trainable elements.
-(c) ``AdamW8bit`` equals JAX ``adamw8bit`` over three steps.
+(c) ``AdamW8bit(v_code="linear")`` equals JAX ``adamw8bit`` over three
+    steps; the default log2 code of Adam's ``v`` keeps every step within a
+    few ``lr`` of float32 AdamW where gradient scales spread over four
+    decades, where the linear code takes steps thousands of times ``lr``
+    (ROADMAP F10).
 (d) Accumulation over two batches equals ``optax.MultiSteps``.
 (e) ``Stage2Settings`` defaults are ``configs/train/stage2.yaml``; the
     stage-2 denoising UNet's arguments are ``inference_v2.yaml``'s.
@@ -266,7 +270,7 @@ def test_adamw8bit_matches_jax():
     jp = dict(params)
     tp = {k: torch.nn.Parameter(t(v.copy())) for k, v in params.items()}
     opt = AdamW8bit(list(tp.values()), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
-                    weight_decay=1e-2)
+                    weight_decay=1e-2, v_code="linear")
     for _ in range(3):
         grads = {k: (rs.randn(*s) * rs.choice([1e-3, 1.0])).astype(np.float32)
                  for k, s in shapes.items()}
@@ -290,6 +294,39 @@ def test_adamw8bit_matches_jax():
     padded = [padded_len(int(np.prod(s)), 256) for s in shapes.values()]
     # int8 m and v, a float32 scale each per block, a float32 step count
     assert state_bytes(opt) == sum(2 * n + 2 * 4 * (n // 256) + 4 for n in padded)
+
+
+def _spread_probe(decades: int, v_code: str, steps: int = 200, n: int = 16384):
+    """Largest single-element step, in lr, of ``AdamW8bit`` over ``steps``
+    Gaussian gradients whose per-element scales are ``10 ** U(0, decades)``
+    (lr 1e-5, no weight decay, seed 0)."""
+    lr = 1e-5
+    rs = np.random.RandomState(0)
+    scales = 10.0 ** rs.uniform(0, decades, n)
+    p = torch.nn.Parameter(torch.zeros(n))
+    opt = AdamW8bit([p], lr=lr, weight_decay=0.0, v_code=v_code)
+    largest = 0.0
+    for _ in range(steps):
+        p.grad = torch.from_numpy((rs.randn(n) * scales).astype(np.float32))
+        before = p.detach().clone()
+        opt.step()
+        largest = max(largest, float((p.detach() - before).abs().max()) / lr)
+    return largest, opt
+
+
+@pytest.mark.parametrize("decades", [1, 2, 3, 4])
+def test_adamw8bit_second_moment_keeps_small_v(decades):
+    """F10: on the default log2 code no step exceeds 5 lr (float32 AdamW's
+    largest is ~1 lr), and the state stays at ~2.03 B/parameter; on the
+    linear code, at two decades, zeroed ``v`` codes give steps over 1000 lr."""
+    from aniportrait_tpu_torch.train.optim8bit import state_bytes
+
+    largest, opt = _spread_probe(decades, "log2")
+    assert largest <= 5.0, largest
+    assert opt.state[opt.param_groups[0]["params"][0]]["v"].dtype == torch.uint8
+    assert state_bytes(opt) / 16384 <= 2.05
+    if decades == 2:
+        assert _spread_probe(decades, "linear")[0] > 1000.0
 
 
 # ----------------------------------------------------- (d) accumulation
