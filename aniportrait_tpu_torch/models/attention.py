@@ -125,13 +125,16 @@ class SpatialTransformerBlock(nn.Module):
         half of the rows, the unconditional ones, attend to themselves only)
         or 'traced' (the rows of the batch entries flagged in ``drop_ref``
         (B,) ignore the bank, through the masked attention; the training
-        path's CFG dropout).
+        path's CFG dropout).  The two halves of 'first_half' apart, for a
+        rank of the CFG-split sampler that holds one: 'uncond' (no row reads
+        the bank) and 'cond' (every row reads it; the bank's row for token
+        row r is r // video_length of the local rows).
         Returns (x, the post-norm1 hidden states if capture_bank else None)."""
         h = self.norm1(x)
         bank = h if capture_bank else None
-        if ref_bank is None:
+        if ref_bank is None or drop_mode == "uncond":
             x = x + self.attn1(h)
-        elif drop_mode == "none":
+        elif drop_mode in ("none", "cond"):
             x = x + self.attn1(h, extra_kv=ref_bank, extra_repeat=video_length)
         elif drop_mode == "first_half":
             half, half_b = h.shape[0] // 2, ref_bank.shape[0] // 2

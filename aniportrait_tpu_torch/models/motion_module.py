@@ -13,6 +13,13 @@ blocks see each window as its own sequence, stacked into the batch, with the
 positional encoding indexed by position within the window; frames covered by
 several windows average their hidden states before proj_out
 (``aniportrait_tpu/models/motion_module.py:106-204``).
+
+Under frame-block sharding (``frame_shard``, the multi-rank sampler) the
+per-frame GroupNorm, ``proj_in`` and ``proj_out`` run on the rank's frames;
+around the transformer blocks one ``all_to_all`` turns the frame shards into
+spatial-position shards and another turns them back, so the temporal kernel
+runs on every frame at ``s / ranks`` positions (temporal attention is
+independent per position) and the window table applies to whole clips.
 """
 
 from __future__ import annotations
@@ -25,6 +32,11 @@ from aniportrait_tpu_torch.models.attention import CrossAttention, FeedForward, 
 from aniportrait_tpu_torch.models.embeddings import sinusoidal_positional_encoding
 from aniportrait_tpu_torch.models.resnet import GroupNorm
 from aniportrait_tpu_torch.models.transformer_spatial import from_tokens, to_tokens
+from aniportrait_tpu_torch.parallel.mesh import (
+    FrameShard,
+    frames_to_positions,
+    positions_to_frames,
+)
 
 
 class PositionalEncoding(nn.Module):
@@ -148,18 +160,28 @@ class TemporalTransformer3D(nn.Module):
         ])
         self.proj_out = nn.Linear(channels, channels)
 
-    def forward(self, x, video_length: int, windows=None):
-        """x: (b * f, c, h, w) -> same shape.  windows: optional
-        (n_win, win_len) numpy frame-index table (see the module doc)."""
+    def forward(self, x, video_length: int, windows=None,
+                frame_shard: FrameShard | None = None):
+        """x: (b * f, c, h, w) -> same shape, f = ``video_length`` frames.
+        windows: optional (n_win, win_len) numpy frame-index table over the
+        whole clip (see the module doc).  frame_shard: the clip's frames
+        split over ranks, of which ``x`` holds this rank's block."""
         bf, c, h, w = x.shape
         hid = self.proj_in(to_tokens(self.norm(x)))
         hid = hid.reshape(bf // video_length, video_length, h * w, c)
+        frames = video_length
+        if frame_shard is not None:
+            hid = frames_to_positions(hid, frame_shard)
+            frames = frame_shard.frames
         if windows is not None:
             hid = split_windows(hid, windows)
-        for block in self.transformer_blocks:
-            hid = block(hid)
+        if hid.shape[2]:  # a rank may hold no positions of a small level
+            for block in self.transformer_blocks:
+                hid = block(hid)
         if windows is not None:
-            hid = merge_windows(hid, windows, video_length)
+            hid = merge_windows(hid, windows, frames)
+        if frame_shard is not None:
+            hid = positions_to_frames(hid, frame_shard, h * w)
         hid = self.proj_out(hid.reshape(bf, h * w, c))
         return x + from_tokens(hid, h, w)
 
@@ -174,5 +196,5 @@ class MotionModule(nn.Module):
             channels, heads, num_transformer_blocks, pe_max_len=pe_max_len
         )
 
-    def forward(self, x, video_length: int, windows=None):
-        return self.temporal_transformer(x, video_length, windows)
+    def forward(self, x, video_length: int, windows=None, frame_shard=None):
+        return self.temporal_transformer(x, video_length, windows, frame_shard)

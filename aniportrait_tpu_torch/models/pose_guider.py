@@ -25,6 +25,7 @@ from aniportrait_tpu_torch.models.transformer_spatial import (
     from_tokens,
     to_tokens,
 )
+from aniportrait_tpu_torch.parallel.mesh import AllReduceSum
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -35,7 +36,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance is the biased ``E[x^2] - E[x]^2`` (clipped at 0) both for the
     normalisation and for the running update, which moves the statistics by
     ``momentum`` (0.1 here, flax's 0.9 on the old value).  Torch's own
-    update uses the unbiased variance."""
+    update uses the unbiased variance.
+
+    With ``group`` set (a ``parallel.mesh.Group``, by :func:`sync_batch_norm`)
+    the statistics are the global batch's, as flax's are under the JAX
+    package's data mesh: the float32 sums and sums of squares are
+    all-reduced over the ranks, differentiably, so the running statistics
+    stay identical on every rank and the gradients are the global batch's."""
+
+    group = None
 
     def forward(self, x):
         xf = x.float()
@@ -44,14 +53,29 @@ class BatchNorm2d(nn.BatchNorm2d):
                 xf, self.running_mean.float(), self.running_var.float(),
                 self.weight.float(), self.bias.float(), False, 0.0, self.eps,
             ).to(x.dtype)
-        mean = xf.mean((0, 2, 3))
-        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if self.group is not None and self.group.size > 1:
+            n = xf.numel() // xf.shape[1] * self.group.size
+            sums = AllReduceSum.apply(
+                torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))]), self.group)
+            mean, sq = (sums / n).chunk(2)
+        else:
+            mean, sq = xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
+        var = (sq - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             self.running_mean.lerp_(mean.detach(), self.momentum)
             self.running_var.lerp_(var.detach(), self.momentum)
         mul = self.weight.float() * torch.rsqrt(var + self.eps)
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
         return y.to(x.dtype)
+
+
+def sync_batch_norm(model: nn.Module, group) -> nn.Module:
+    """Make every :class:`BatchNorm2d` of ``model`` compute its train-mode
+    statistics over ``group`` (None: this rank's batch alone)."""
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm2d):
+            mod.group = group
+    return model
 
 
 def conv_bn_relu(c_in: int, c_out: int, kernel: int, stride: int) -> List[nn.Module]:

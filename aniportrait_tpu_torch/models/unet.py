@@ -142,7 +142,7 @@ class AniUNet(nn.Module):
                 ref_banks: Optional[Dict[str, torch.Tensor]] = None,
                 capture_banks: bool = False, drop_mode: str = "none",
                 mode: str = "full", motion_windows=None, drop_ref=None,
-                enc_features=None):
+                enc_features=None, frame_shard=None):
         """
         sample: (b, f, c_in, h, w) latents; timesteps: (b,);
         encoder_hidden_states: (b, S, ctx_dim); pose_cond_fea: list of
@@ -150,7 +150,10 @@ class AniUNet(nn.Module):
         'none', 'first_half' or 'traced' (see SpatialTransformerBlock), the
         last with drop_ref (b,) bool, the CFG-dropped batch entries;
         motion_windows: the motion modules' (n_win, win_len) numpy window
-        table, or None for whole-clip temporal attention.
+        table, or None for whole-clip temporal attention; frame_shard: a
+        ``parallel.FrameShard`` when ``sample`` holds one rank's block of
+        the clip's frames (the motion modules then attend over the whole
+        clip, ``motion_windows`` indexing it).
 
         mode: 'full'; 'encode' stops after the mid block and returns
         ``enc_features = (mid output, skip stack)`` (frames folded) in place
@@ -168,6 +171,9 @@ class AniUNet(nn.Module):
 
         def fold(x):
             return x.reshape(b * f, *x.shape[2:])
+
+        def motion(mm, x):
+            return self._run(mm, x, f, motion_windows, frame_shard)
 
         def spatial(attn, x, key):
             x, captured = self._run(
@@ -187,7 +193,7 @@ class AniUNet(nn.Module):
             stack = list(stack)
         else:
             x, stack = self._encode(fold(sample).to(dtype), emb, f, fold,
-                                    pose_cond_fea, spatial, motion_windows)
+                                    pose_cond_fea, spatial, motion)
         if mode == "encode":
             return (x, tuple(stack)), banks
 
@@ -197,7 +203,7 @@ class AniUNet(nn.Module):
                 if hasattr(blk, "attentions"):
                     x = spatial(blk.attentions[j], x, f"up_{i}_{j}")
                 if hasattr(blk, "motion_modules"):
-                    x = self._run(blk.motion_modules[j], x, f, motion_windows)
+                    x = motion(blk.motion_modules[j], x)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
 
@@ -206,7 +212,7 @@ class AniUNet(nn.Module):
         x = self.conv_out(F.silu(self.conv_norm_out(x, f)))
         return x.reshape(b, f, *x.shape[1:]), banks
 
-    def _encode(self, x, emb, f, fold, pose_cond_fea, spatial, motion_windows):
+    def _encode(self, x, emb, f, fold, pose_cond_fea, spatial, motion):
         """conv_in, the down blocks and the mid block on frames-folded
         ``x``; returns (mid output, skip stack)."""
         x = self.conv_in(x)
@@ -219,7 +225,7 @@ class AniUNet(nn.Module):
                 if hasattr(blk, "attentions"):
                     x = spatial(blk.attentions[j], x, f"down_{i}_{j}")
                 if hasattr(blk, "motion_modules"):
-                    x = self._run(blk.motion_modules[j], x, f, motion_windows)
+                    x = motion(blk.motion_modules[j], x)
                 stack.append(x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
@@ -231,5 +237,5 @@ class AniUNet(nn.Module):
         x = self._run(mid.resnets[0], x, emb, f)
         x = spatial(mid.attentions[0], x, "mid_0")
         if hasattr(mid, "motion_modules"):
-            x = self._run(mid.motion_modules[0], x, f, motion_windows)
+            x = motion(mid.motion_modules[0], x)
         return self._run(mid.resnets[1], x, emb, f), stack

@@ -20,7 +20,8 @@ The long-clip options of the JAX pipeline are the same here (see
 rotation and latent interpolation; :meth:`Pose2VideoPipeline.run_cases`
 overlaps one request's upload and another's download with a third's
 denoise.  On a GPU, host <-> device copies run from pinned memory on side
-CUDA streams.
+CUDA streams.  Over a ``parallel.Mesh`` (``mesh=``) the ranks share out
+the windows, or the CFG halves and frame blocks, and the VAE decode.
 
 Inputs are uint8 ``(H, W, 3)`` images; the output is ``(L, H, W, 3)``.
 Initial noise comes from ``torch.Generator(device).manual_seed(seed)``.
@@ -36,6 +37,12 @@ import torch
 
 from aniportrait_tpu_torch.factory import PipelineModules
 from aniportrait_tpu_torch.models.clip_vision import CLIP_MEAN, CLIP_STD
+from aniportrait_tpu_torch.parallel.mesh import (
+    FrameShard,
+    frame_sizes,
+    replicate,
+    shard_rows,
+)
 from aniportrait_tpu_torch.pipelines.context import (
     uniform_context_windows,
     wide_motion_windows,
@@ -46,6 +53,15 @@ from aniportrait_tpu_torch.utils.image import resize
 from aniportrait_tpu_torch.utils.profiling import PhaseTimer
 
 VAE_SCALE = 0.18215
+
+
+def mesh_window_batch(window_batch: int, ranks: int) -> int:
+    """The window batch of a pipeline over ``ranks``: rounded, as the JAX
+    pipeline rounds it, so that ``2 * window_batch`` (its CFG rows) divides
+    the ranks."""
+    if (2 * window_batch) % ranks:
+        return max(ranks // 2, 1) * max(1, (2 * window_batch) // ranks)
+    return window_batch
 
 
 class Pose2VideoPipeline:
@@ -69,9 +85,13 @@ class Pose2VideoPipeline:
         * ``context_rotate``: the window table of step s is the context
           scheduler's step-s table (off when fused or with the cache).
 
-        ``mesh`` (multi-GPU sampling) is not ported and raises."""
-        if mesh is not None:
-            raise NotImplementedError("mesh: multi-GPU sampling is not ported yet")
+        ``mesh``: a ``parallel.Mesh`` (every rank builds the pipeline over
+        its own copy of the models and calls it with the same arguments):
+        the models are replicated from rank 0, each rank denoises its share
+        (see :meth:`_build_sampler`) and VAE-decodes its share of the
+        chunks, and every rank returns the same video.  ``window_batch`` is
+        rounded as the JAX pipeline rounds it, so that ``2 * window_batch``
+        divides the ranks."""
         if fusion_motion not in ("auto", "context"):
             raise ValueError(f"fusion_motion={fusion_motion!r}")
         self.m = modules
@@ -85,6 +105,10 @@ class Pose2VideoPipeline:
         self.window_fusion = bool(window_fusion)
         self.fusion_motion = fusion_motion
         self.context_rotate = bool(context_rotate)
+        self.mesh = mesh
+        if mesh is not None:
+            replicate(modules.models().values(), mesh)
+            self.window_batch = mesh_window_batch(window_batch, mesh.size)
         self.timer = PhaseTimer()
         self._streams = {}
 
@@ -186,8 +210,19 @@ class Pose2VideoPipeline:
     def _build_sampler(self, video_length: int, hlat: int, wlat: int, steps: int,
                        guidance_scale: float, windowed: bool):
         """The denoise loop for one bucket: ``sample(latents, ctx_cfg, banks,
-        pose_fea)`` with latents (1, L, h, w, 4) float32, returns the same."""
-        m, sched = self.m, self.m.scheduler
+        pose_fea)`` with latents (1, L, h, w, 4) float32, returns the same.
+
+        Under a mesh every rank runs the same loop on its share and returns
+        the same latents: the exact windowed path gives each rank a
+        contiguous share of each step's (padded) window table, both CFG
+        halves of each window, in local batches of ``ceil(window_batch /
+        ranks)`` windows; the whole-clip and fused paths give each rank one
+        CFG half (``uncond``/``cond``, with an even world and CFG) and a
+        block of frames (``parallel.FrameShard``; the motion modules
+        exchange frames for positions).  Each step ends with one float32
+        ``all_reduce`` of the rank's noise predictions (and window counts)
+        into the clip's, so every rank applies the same DDIM update."""
+        m, sched, mesh = self.m, self.m.scheduler, self.mesh
         timesteps = [int(t) for t in sched.timesteps(steps)]
         do_cfg = guidance_scale > 1.0
         ctx_args = (self.context_frames, self.context_stride, self.context_overlap)
@@ -206,36 +241,61 @@ class Pose2VideoPipeline:
                 motion_windows = wide_motion_windows(
                     video_length, pe_max, max(self.context_overlap, 1))
         single = fused or (n_win == 1 and win_len == video_length)
-        wb = 1 if single else min(self.window_batch, n_win)
+        wb = 1 if single else (self.window_batch if mesh is not None
+                               else min(self.window_batch, n_win))
         k_cache = max(1, self.encoder_cache_interval)
         rotate = self.context_rotate and not single and k_cache <= 1
         tables = (windows_for_all_steps(steps, video_length, *ctx_args) if rotate
                   else [windows])
         pad_to = -(-max(len(t) for t in tables) // wb) * wb
         dev = self.device
+        ranks = 1 if mesh is None else mesh.size
+        local_wb = -(-wb // ranks)
 
         def window_batches(table):
-            """The table padded by repetition to ``pad_to`` rows, in batches
-            of ``wb``: [(frame indices (wb, win_len), valid (wb,))]."""
+            """The table padded by repetition to ``pad_to`` rows, this rank's
+            share of it in batches of at most ``local_wb``: [(frame indices
+            (n, win_len), valid (n,))]."""
             reps = 1 + (pad_to - 1) // len(table)
             padded = np.tile(table, (reps, 1))[:pad_to].astype(np.int64)
             valid = np.arange(pad_to) < len(table)
-            return [(torch.from_numpy(padded[i:i + wb]).to(dev), valid[i:i + wb])
-                    for i in range(0, pad_to, wb)]
+            rank = 0 if mesh is None else mesh.rank
+            share = range(pad_to)[shard_rows(pad_to, ranks, rank)]
+            return [(torch.from_numpy(padded[i:min(i + local_wb, share.stop)]).to(dev),
+                     valid[i:min(i + local_wb, share.stop)])
+                    for i in range(share.start, share.stop, local_wb)]
 
         step_batches = [window_batches(t) for t in tables]
-        drop_mode = "first_half" if do_cfg else "none"
+
+        # the whole-clip pass under a mesh: this rank's CFG half and frames
+        cfg_split = mesh is not None and single and do_cfg and mesh.cfg_ways == 2
+        half = mesh.cfg_index if cfg_split else None
+        shard, block, contributes = None, slice(None), True
+        if mesh is not None and single:
+            group = mesh.frames if cfg_split else mesh.world
+            if group.size > 1 and video_length >= group.size:
+                shard = FrameShard(group, frame_sizes(video_length, group.size))
+                block = shard.block
+            else:  # every rank of the group runs the whole clip; one counts
+                contributes = group.index == 0
+        drop_mode = (("uncond", "cond")[half] if cfg_split
+                     else "first_half" if do_cfg else "none")
 
         def cfg2(x):
+            if cfg_split:
+                return x
             return torch.cat([x, x], dim=0) if do_cfg else x
 
         def tile_cfg(v, n_rows):
-            """Rows [uncond x half, cond x half] (or cond only), once per clip."""
+            """Rows [uncond x half, cond x half] (or one half only), once per
+            clip."""
+            if cfg_split:
+                return v[half:half + 1].repeat_interleave(n_rows, dim=0)
             if not do_cfg:
                 return v[1:].repeat_interleave(n_rows, dim=0)
-            half = n_rows // 2
-            return torch.cat([v[:1].repeat_interleave(half, dim=0),
-                              v[1:].repeat_interleave(half, dim=0)], dim=0)
+            half_rows = n_rows // 2
+            return torch.cat([v[:1].repeat_interleave(half_rows, dim=0),
+                              v[1:].repeat_interleave(half_rows, dim=0)], dim=0)
 
         def unet(lat, t, ctx_t, banks_t, pose_w, mode="full", enc=None):
             b = lat.shape[0]
@@ -243,6 +303,7 @@ class Pose2VideoPipeline:
                 lat.to(self.dtype), torch.full((b,), t, dtype=torch.long, device=dev),
                 ctx_t, pose_cond_fea=pose_w, ref_banks=banks_t, drop_mode=drop_mode,
                 mode=mode, motion_windows=motion_windows, enc_features=enc,
+                frame_shard=shard,
             )
             return out
 
@@ -262,14 +323,35 @@ class Pose2VideoPipeline:
         @torch.no_grad()
         def sample(latents, ctx_cfg, banks, pose_fea):
             x = latents.permute(0, 1, 4, 2, 3).contiguous()  # (1, L, 4, h, w)
-            n_rows = (2 if do_cfg else 1) * wb
-            ctx_t = tile_cfg(ctx_cfg, n_rows)
-            banks_t = {k: tile_cfg(v, n_rows) for k, v in banks.items()}
+            tiled = {}
+
+            def cond_rows(n_windows):
+                """(context, banks) tiled to ``n_windows`` windows' rows."""
+                if n_windows not in tiled:
+                    n_rows = (2 if do_cfg and not cfg_split else 1) * n_windows
+                    tiled[n_windows] = (tile_cfg(ctx_cfg, n_rows),
+                                        {k: tile_cfg(v, n_rows) for k, v in banks.items()})
+                return tiled[n_windows]
+
+            def gather_clip(pred):
+                """The clip's (CFG rows, L, ...) prediction from every rank's
+                rows of its frame block."""
+                full = torch.zeros((2 if do_cfg else 1,) + x.shape[1:],
+                                   dtype=torch.float32, device=dev)
+                if contributes:
+                    rows = slice(half, half + 1) if cfg_split else slice(None)
+                    full[rows, block] = pred
+                return mesh.world.all_reduce_(full)
+
             cache = {}
             if single:
-                pose_w = [cfg2(pf) for pf in pose_fea]
+                ctx_t, banks_t = cond_rows(1)
+                pose_w = [cfg2(pf[:, block]) for pf in pose_fea]
                 for i, t in enumerate(timesteps):
-                    pred = predict(cfg2(x), t, i, ctx_t, banks_t, pose_w, cache, 0)
+                    pred = predict(cfg2(x[:, block]), t, i, ctx_t, banks_t, pose_w,
+                                   cache, 0)
+                    if mesh is not None:
+                        pred = gather_clip(pred)
                     if do_cfg:
                         pred = combine(*pred.chunk(2, dim=0))
                     x = sched.step(pred, t, x, steps)
@@ -286,6 +368,7 @@ class Pose2VideoPipeline:
                                          dtype=torch.float32, device=dev)
                 counter = torch.zeros(video_length, dtype=torch.float32, device=dev)
                 for slot, (win, ok) in enumerate(step_batches[i if rotate else 0]):
+                    ctx_t, banks_t = cond_rows(win.shape[0])
                     pred = predict(cfg2(x[0][win]), t, i, ctx_t, banks_t,
                                    window_pose(win), cache, slot)
                     parts = pred.chunk(2, dim=0) if do_cfg else (pred,)
@@ -295,6 +378,11 @@ class Pose2VideoPipeline:
                         for row, part in enumerate(parts):
                             noise_pred[row].index_add_(0, win[k], part[k])
                         counter.index_add_(0, win[k], torch.ones(win_len, device=dev))
+                if mesh is not None:
+                    sums = mesh.world.all_reduce_(
+                        torch.cat([noise_pred.reshape(-1), counter]))
+                    noise_pred = sums[:noise_pred.numel()].view_as(noise_pred)
+                    counter = sums[noise_pred.numel():]
                 noise_pred = noise_pred / counter[None, :, None, None, None]
                 pred = combine(noise_pred[0:1], noise_pred[1:2]) if do_cfg else noise_pred
                 x = sched.step(pred, t, x, steps)
@@ -314,17 +402,42 @@ class Pose2VideoPipeline:
         pad = (-length) % decode_chunk
         if pad:
             z = torch.cat([z, z[:pad]], dim=0)
+        chunks = z.split(decode_chunk)
+        mine = range(len(chunks))
+        if self.mesh is not None:  # this rank's share of the chunks
+            mine = mine[shard_rows(len(chunks), self.mesh.size, self.mesh.rank)]
+            to_host_here, to_host = to_host, False
         out = []
-        for chunk in z.split(decode_chunk):
-            img = self.m.vae.decode(chunk.to(self.dtype)).float()
+        for i in mine:
+            img = self.m.vae.decode(chunks[i].to(self.dtype)).float()
             img = (img / 2 + 0.5).clamp(0.0, 1.0)
             img = torch.round(img * 255.0).to(torch.uint8).permute(0, 2, 3, 1).contiguous()
             out.append(self._download(img) if to_host else (img, None))
         for _, done in out:
             if done is not None:
                 done.synchronize()
+        if self.mesh is not None:  # every rank's chunks, in order
+            n = len(chunks)
+            rows = [decode_chunk * len(range(n)[shard_rows(n, self.mesh.size, r)])
+                    for r in range(self.mesh.size)]
+            local = (torch.cat([img for img, _ in out]) if out else torch.empty(
+                (0, 8 * z.shape[2], 8 * z.shape[3], 3), dtype=torch.uint8, device=z.device))
+            video = torch.cat(self.mesh.world.all_gather(local, rows))[:length]
+            if not to_host_here:
+                return video
+            host, done = self._download(video)
+            if done is not None:
+                done.synchronize()
+            return host.numpy()
         video = torch.cat([img for img, _ in out], dim=0)[:length]
         return video.numpy() if to_host else video
+
+    def _initial_latents(self, seed: int, shape) -> torch.Tensor:
+        """The initial noise, float32: the same on every rank of a mesh."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        latents = torch.randn(shape, generator=gen, device=self.device,
+                              dtype=torch.float32)
+        return latents * self.m.scheduler.init_noise_sigma
 
     # -------------------------------------------------------------- call
     def run_cases(self, cases, width: int, height: int, **kw):
@@ -396,10 +509,7 @@ class Pose2VideoPipeline:
         hlat, wlat = height // 8, width // 8
         sampler = self._build_sampler(video_length, hlat, wlat, num_inference_steps,
                                       guidance_scale, windowed)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        latents = torch.randn((1, video_length, hlat, wlat, 4), generator=gen,
-                              device=self.device, dtype=torch.float32)
-        latents = latents * self.m.scheduler.init_noise_sigma
+        latents = self._initial_latents(seed, (1, video_length, hlat, wlat, 4))
         with self.timer.phase("denoise"):
             latents = sampler(latents, ctx_cfg, banks, pose_fea)
             self._sync()

@@ -20,6 +20,15 @@ state dicts under the reference's names, as the reference's stage 1 saves
 them: ``reference_unet-<step>.pth``, ``denoising_unet-<step>.pth`` and
 ``pose_guider-<step>.pth`` (what stage 2's ``stage1_ckpt_dir`` and
 ``stage1_ckpt_step`` name).
+
+Data-parallel under ``torchrun`` (one process a card, NCCL):
+
+    torchrun --nproc_per_node=N -m aniportrait_tpu_torch.scripts.train_stage_1 --config ...
+
+The world size is the data-parallel size and must divide ``train_bs``; each
+rank reads ``train_bs / N`` rows a step from its shard of the dataset
+(``FaceDataset.shard``), the optimizer state is sharded (ZeRO-1), and only
+rank 0 logs, validates and writes checkpoints and the final ``.pth`` files.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import torch
 
 from aniportrait_tpu_torch import factory
 from aniportrait_tpu_torch.config import Config, load_config
+from aniportrait_tpu_torch.parallel import init_distributed, make_mesh
 from aniportrait_tpu_torch.weights import convert as cv
 from aniportrait_tpu_torch.weights.load import (
     find_weights,
@@ -95,23 +105,39 @@ def dataset_for(cfg: Config, settings, modules, is_image: bool):
         is_image=is_image, seed=settings.seed, clip_size=modules.clip.image_size)
 
 
-def run(cfg: Config, settings, modules, args, device) -> tuple:
-    """Train over the YAML's dataset; returns (save_dir, history)."""
+def data_parallel_mesh(settings, device: torch.device):
+    """The mesh of the ``torchrun`` job this process belongs to (one rank
+    without one; NCCL on the card, gloo for ``--device cpu``); its size must
+    divide ``train_bs``."""
+    init_distributed("gloo" if device.type == "cpu" else None)
+    mesh = make_mesh()
+    if settings.train_bs % mesh.size:
+        raise SystemExit(f"train_bs {settings.train_bs} does not divide over "
+                         f"{mesh.size} data-parallel ranks")
+    return mesh
+
+
+def run(cfg: Config, settings, modules, args, device, mesh) -> tuple:
+    """Train over the YAML's dataset (this rank's shard of it); returns
+    (save_dir, history)."""
     from aniportrait_tpu_torch.train.prefetch import prefetch
     from aniportrait_tpu_torch.train.stage1 import train
     from aniportrait_tpu_torch.train.trackers import Tracker
 
     dataset = dataset_for(cfg, settings, modules, is_image=settings.stage == 1)
+    dataset.shard(mesh.rank, mesh.size)
     save_dir = Path(str(cfg.output_dir)) / str(cfg.exp_name)
     save_dir.mkdir(parents=True, exist_ok=True)
-    tracker = Tracker(str(save_dir), str(cfg.exp_name), enable_tb=False)
+    tracker = Tracker(str(save_dir), str(cfg.exp_name), enable_tb=False) \
+        if mesh.rank == 0 else None
     try:
-        history = train(settings, modules, prefetch(dataset.batches(settings.train_bs),
-                                                    depth=2),
+        batches = dataset.batches(settings.train_bs // mesh.size)
+        history = train(settings, modules, prefetch(batches, depth=2),
                         max_steps=args.max_steps, device=device, save_dir=str(save_dir),
-                        dataset=dataset, tracker=tracker)
+                        dataset=dataset, tracker=tracker, mesh=mesh)
     finally:
-        tracker.close()
+        if tracker is not None:
+            tracker.close()
     return save_dir, history
 
 
@@ -127,6 +153,7 @@ def main(argv=None):
     device = check_device(args.device)
     cfg = load_config(args.config)
     settings = Stage1Settings.from_config(cfg)
+    mesh = data_parallel_mesh(settings, device)
     torch.manual_seed(settings.seed)
     frozen_dtype = settings.compute_dtype
     modules = factory.build_training_models(
@@ -140,11 +167,20 @@ def main(argv=None):
         overlay(modules.reference_unet, "reference_unet", [base])
         overlay(modules.denoising_unet, "denoising_unet", [base])
 
-    save_dir, history = run(cfg, settings, modules, args, device)
+    save_dir, history = run(cfg, settings, modules, args, device, mesh)
     step = history[-1]["step"] + 1 if history else 0
-    for name in ("reference_unet", "denoising_unet", "pose_guider"):
-        save_state(getattr(modules, name), save_dir / f"{name}-{step}.pth")
-    print(f"done, saved to {save_dir}")
+    if mesh.rank == 0:
+        for name in ("reference_unet", "denoising_unet", "pose_guider"):
+            save_state(getattr(modules, name), save_dir / f"{name}-{step}.pth")
+        print(f"done, saved to {save_dir}")
+    finish_distributed()
+
+
+def finish_distributed() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -16,7 +16,8 @@ paths, the ReferenceNet, the denoising UNet and the PoseGuider from stage
 AnimateDiff motion modules from ``mm_path`` over them, all through
 ``weights/load.py``.  At the end it writes the motion modules' state dict
 under the reference's names, ``motion_module-<step>.pth``, which the
-loader reads as a prompt config's ``motion_module_path``.
+loader reads as a prompt config's ``motion_module_path``.  Under
+``torchrun`` it trains data-parallel as ``scripts/train_stage_1.py`` does.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from aniportrait_tpu_torch.config import load_config
 from aniportrait_tpu_torch.scripts.loader import inference_settings
 from aniportrait_tpu_torch.scripts.train_stage_1 import (
     check_device,
+    data_parallel_mesh,
+    finish_distributed,
     overlay,
     parse_args,
     run,
@@ -49,6 +52,7 @@ def main(argv=None):
     device = check_device(args.device)
     cfg = load_config(args.config)
     settings = Stage2Settings.from_config(cfg)
+    mesh = data_parallel_mesh(settings, device)
     torch.manual_seed(settings.seed)
     overrides = inference_settings(cfg)[0] if cfg.get("inference_config") else None
     modules = factory.build_training_models(
@@ -65,11 +69,13 @@ def main(argv=None):
         overlay(modules.denoising_unet, "denoising_unet",
                 [s1("denoising_unet")] + ([str(cfg.mm_path)] if cfg.get("mm_path") else []))
 
-    save_dir, history = run(cfg, settings, modules, args, device)
+    save_dir, history = run(cfg, settings, modules, args, device, mesh)
     step = history[-1]["step"] + 1 if history else 0
-    path = save_dir / f"motion_module-{step}.pth"
-    save_state(modules.denoising_unet, path, is_motion)
-    print(f"done, saved to {path}")
+    if mesh.rank == 0:
+        path = save_dir / f"motion_module-{step}.pth"
+        save_state(modules.denoising_unet, path, is_motion)
+        print(f"done, saved to {path}")
+    finish_distributed()
 
 
 if __name__ == "__main__":

@@ -17,6 +17,11 @@ A save copies the state to the host on the caller's thread and, with
 
     save = save_train_checkpoint(ckpt_dir, modules, optimizer, trainable,
                                  step, stage=2, block=False)
+
+Data-parallel training (a ``parallel.Zero1`` optimizer) gathers the sharded
+optimizer state to rank 0 at a save, and only rank 0 writes (every rank
+calls the save); a restore runs on every rank, each loading the state of the
+parameters it owns.
     ...
     finish_async_save(save)
     step = restore_train_checkpoint(ckpt_dir, modules, optimizer, trainable,
@@ -70,12 +75,14 @@ def snapshot(modules, optimizer: torch.optim.Optimizer,
     """Host copies of everything a checkpoint holds."""
     host = lambda v: v.detach().to("cpu", copy=True) if torch.is_tensor(v) else v
     names = {p: name for name, p in trainable.items()}
+    gather = getattr(optimizer, "gather_state", None)
+    opt_state = gather() if gather is not None else optimizer.state
     return {
         "step": int(step),
         "stage": int(stage),
         "trainable": {name: host(p) for name, p in trainable.items()},
         "optimizer": {names[p]: {k: host(v) for k, v in st.items()}
-                      for p, st in optimizer.state.items()},
+                      for p, st in opt_state.items()},
         "batch_stats": {k: host(v) for k, v in _stats(modules).items()},
         "frozen": frozen_meta(modules, trainable),
     }
@@ -117,11 +124,14 @@ class AsyncSave:
 
 def save_train_checkpoint(ckpt_dir: str, modules, optimizer: torch.optim.Optimizer,
                           trainable: Dict[str, torch.nn.Parameter], step: int,
-                          stage: int, keep: int = 1, block: bool = True
-                          ) -> Optional[AsyncSave]:
+                          stage: int, keep: int = 1, block: bool = True,
+                          write: bool = True) -> Optional[AsyncSave]:
     """Save a trainable-only checkpoint at ``step``; with ``block=False``
-    return the :class:`AsyncSave` writing it."""
+    return the :class:`AsyncSave` writing it.  ``write=False``: take part
+    in the snapshot's gather only (a data-parallel rank other than 0)."""
     state = snapshot(modules, optimizer, trainable, step, stage)
+    if not write:
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
     if block:
         _write(ckpt_dir, state, keep)
@@ -165,10 +175,12 @@ def restore_train_checkpoint(ckpt_dir: str, modules, optimizer: torch.optim.Opti
     for name, p in trainable.items():
         p.copy_(state["trainable"][name])
     optimizer.state.clear()
+    owns = getattr(optimizer, "owns", lambda p: True)
     for name, st in state["optimizer"].items():
         p = trainable[name]
-        optimizer.state[p] = {k: v if k == "step" else v.to(p.device)
-                              for k, v in st.items()}
+        if owns(p):
+            optimizer.state[p] = {k: v if k == "step" else v.to(p.device)
+                                  for k, v in st.items()}
     stats = _stats(modules)
     for k, v in state["batch_stats"].items():
         stats[k].copy_(v)

@@ -130,6 +130,13 @@ class AdamW8bit(torch.optim.Optimizer):
         return loss
 
 
+def state_nbytes(p: torch.Tensor, block: int = 256) -> int:
+    """:class:`AdamW8bit`'s state of ``p``: the m and v codes over the padded
+    length, a float32 scale of each per block and a float32 step."""
+    n = padded_len(p.numel(), block)
+    return 2 * n + 8 * (n // block) + 4
+
+
 def state_bytes(optimizer: torch.optim.Optimizer) -> int:
     """Bytes of the optimizer's tensor state on the device (the step counts
     included)."""

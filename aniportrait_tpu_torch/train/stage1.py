@@ -18,6 +18,12 @@ step takes k batches, as the reference's ``global_step`` does.
     modules = factory.build_training_models(
         "full", "cuda", seed=0, scheduler_kwargs=settings.scheduler_kwargs())
     history = train(settings, modules, batches, max_steps=4)
+
+Data-parallel (``mesh``, every rank calling :func:`train` with its own
+batches of ``train_bs / ranks`` rows): the weights are replicated from rank
+0, the PoseGuider's BatchNorm takes the global batch's statistics, the
+optimizer state is sharded (ZeRO-1), and only rank 0 writes checkpoints,
+logs and validates (see ``train_step`` and ``checkpoint``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ import numpy as np
 import torch
 
 from aniportrait_tpu_torch.factory import PipelineModules
+from aniportrait_tpu_torch.models.pose_guider import sync_batch_norm
+from aniportrait_tpu_torch.parallel.mesh import replicate
 from aniportrait_tpu_torch.train.checkpoint import (
     finish_async_save,
     latest_step,
@@ -154,8 +162,8 @@ def _resume_step(settings: Stage1Settings, ckpt_dir: str) -> Optional[int]:
 def train(settings: Stage1Settings, modules: PipelineModules,
           batches: Iterable[Dict[str, Any]], max_steps: int | None = None,
           device="cuda", *, save_dir: str | None = None, dataset=None,
-          tracker=None, optimizer: torch.optim.Optimizer | None = None
-          ) -> List[Dict[str, float]]:
+          tracker=None, optimizer: torch.optim.Optimizer | None = None,
+          mesh=None) -> List[Dict[str, float]]:
     """Run ``settings.stage`` optimizer steps over ``batches`` (numpy arrays
     or tensors in the ``train_step`` contract) until ``max_steps`` (default
     ``max_train_steps``) or the iterator ends.  ``modules`` come from
@@ -168,7 +176,8 @@ def train(settings: Stage1Settings, modules: PipelineModules,
     (grids under ``<save_dir>/validation``; skipped without one);
     ``tracker``: a ``train.trackers.Tracker`` that logs every 10th step's
     loss; ``optimizer``: one over the stage's trainables (default
-    ``make_optimizer`` from the settings).
+    ``make_optimizer`` from the settings); ``mesh``: a ``parallel.Mesh``
+    for data-parallel training (see the module doc).
 
     Returns one ``{'step', 'loss', 'grad_norm', 'seconds'}`` per optimizer
     step (the loss is the mean over its micro-steps); each step's time ends
@@ -180,11 +189,15 @@ def train(settings: Stage1Settings, modules: PipelineModules,
     trainable = apply_freeze(modules, stage)
     for unet in (modules.reference_unet, modules.denoising_unet):
         unet.gradient_checkpointing = settings.gradient_checkpointing
+    lead = mesh is None or mesh.rank == 0
+    if mesh is not None and mesh.size > 1:
+        replicate(modules.models().values(), mesh)
+        sync_batch_norm(modules.pose_guider, mesh.world)
     if optimizer is None:
         optimizer = make_optimizer(
             trainable, settings.learning_rate, settings.adam_weight_decay,
             (settings.adam_beta1, settings.adam_beta2), settings.adam_epsilon,
-            adam_8bit=settings.use_8bit_adam)
+            adam_8bit=settings.use_8bit_adam, mesh=mesh)
     ckpt_dir = None if save_dir is None else os.path.join(save_dir, "checkpoints")
     start = 0
     if settings.resume_from_checkpoint:
@@ -214,19 +227,20 @@ def train(settings: Stage1Settings, modules: PipelineModules,
                                  compute_dtype=settings.compute_dtype,
                                  max_grad_norm=settings.max_grad_norm,
                                  generator=generator, accumulation_steps=k,
-                                 micro_step=micro, **loss_kwargs)
+                                 micro_step=micro, mesh=mesh, **loss_kwargs)
                 losses.append(out["loss"])
             loss = float(torch.stack(losses).mean())
             history.append(dict(step=step, loss=loss, grad_norm=float(out["grad_norm"]),
                                 seconds=time.perf_counter() - t0))
-            if tracker is not None and step % 10 == 0:
+            if tracker is not None and lead and step % 10 == 0:
                 print(tracker.log(step, {"loss": loss}), flush=True)
             done = step + 1
             if ckpt_dir is not None and done % settings.checkpointing_steps == 0:
                 finish_async_save(save)
                 save = save_train_checkpoint(ckpt_dir, modules, optimizer, trainable,
-                                             done, stage, keep=1, block=False)
-            if (dataset is not None and save_dir is not None and settings.validation_steps
+                                             done, stage, keep=1, block=False, write=lead)
+            if (lead and dataset is not None and save_dir is not None
+                    and settings.validation_steps
                     and done % settings.validation_steps == 0):
                 from aniportrait_tpu_torch.train.validation import log_validation
 

@@ -12,6 +12,16 @@ the reference ``train_stage_1.py``:
 * epsilon or v-prediction target, Min-SNR-gamma weights (+1 for v);
 * AdamW over the trainable set only, after clipping by the global norm.
 
+Data-parallel (``mesh``, a ``parallel.Mesh`` of more than one rank): each
+rank holds ``b / ranks`` rows of the global batch.  Every rank draws the
+global batch's random draws from the same seeded generator and keeps its
+own rows, as the single-process step and the JAX package's jitted global
+step draw them; the gradients are averaged by ``all_reduce`` before the
+clip, so the clip sees the global gradient; the PoseGuider's BatchNorm
+takes the global batch's statistics (``models/pose_guider.py:
+sync_batch_norm``); and the optimizer state is sharded by whole parameters
+(``parallel/zero.py``, ZeRO-1).
+
 Stage 1 trains the ReferenceNet (less ``up_blocks.3``), the denoising UNet
 and the PoseGuider; VAE and CLIP are frozen and get no gradients.  Stage 2
 trains the denoising UNet's motion modules only (``freeze_mask_stage2``).
@@ -43,6 +53,7 @@ from typing import Dict, Optional
 import torch
 
 from aniportrait_tpu_torch.factory import PipelineModules
+from aniportrait_tpu_torch.parallel.mesh import all_reduce_mean_
 from aniportrait_tpu_torch.schedulers import compute_snr
 
 VAE_SCALE = 0.18215
@@ -110,6 +121,14 @@ class Draws:
     offset: torch.Tensor
     t: torch.Tensor
 
+    def rows(self, lo: int, hi: int) -> "Draws":
+        """The draws of batch rows ``[lo, hi)`` (the step's dropout flag is
+        shared)."""
+        f = self.noise.shape[1]
+        return Draws(eps_target=self.eps_target[lo * f:hi * f], eps_ref=self.eps_ref[lo:hi],
+                     uncond=self.uncond, noise=self.noise[lo:hi],
+                     offset=self.offset[lo:hi], t=self.t[lo:hi])
+
     @staticmethod
     def sample(b: int, f: int, h: int, w: int, uncond_ratio: float,
                num_train_timesteps: int, generator: torch.Generator) -> "Draws":
@@ -149,19 +168,23 @@ def loss_fn(modules: PipelineModules, batch: Dict[str, torch.Tensor], *,
             prediction_type: str = "v_prediction", snr_gamma: float = 5.0,
             noise_offset: float = 0.05, uncond_ratio: float = 0.1,
             draws: Optional[Draws] = None,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None, mesh=None) -> torch.Tensor:
     """The loss of one batch (either stage).  The PoseGuider runs in train mode
     (its BatchNorm statistics update in place); the caller picks the compute
     dtype (``torch.autocast``).  ``draws``: the step's random draws, else
-    drawn from ``generator``."""
+    drawn from ``generator`` (under ``mesh``, the global batch's, of which
+    this rank keeps its rows)."""
     m = modules
     px = batch["pixel_values"]
     b, f = px.shape[:2]
     clip_dtype = next(m.clip.parameters()).dtype
     if draws is None:
         hl, wl = px.shape[2] // 8, px.shape[3] // 8
-        draws = Draws.sample(b, f, hl, wl, uncond_ratio,
+        ranks = 1 if mesh is None else mesh.size
+        draws = Draws.sample(b * ranks, f, hl, wl, uncond_ratio,
                              m.scheduler.num_train_timesteps, generator)
+        if ranks > 1:
+            draws = draws.rows(mesh.rank * b, (mesh.rank + 1) * b)
 
     latents = vae_sample(m.vae, _nchw(px.reshape(b * f, *px.shape[2:])),
                          draws.eps_target)
@@ -208,19 +231,28 @@ def loss_fn(modules: PipelineModules, batch: Dict[str, torch.Tensor], *,
 def make_optimizer(trainable: Dict[str, torch.nn.Parameter],
                    learning_rate: float = 1e-5, weight_decay: float = 1e-2,
                    betas=(0.9, 0.999), eps: float = 1e-8,
-                   adam_8bit: bool = False) -> torch.optim.Optimizer:
+                   adam_8bit: bool = False, mesh=None) -> torch.optim.Optimizer:
     """AdamW over the trainable set only (the JAX ``make_optimizer``): with
     float32 states, ``optax.adamw``'s math (decoupled decay on the old
     weight, the same bias-corrected update); with ``adam_8bit`` the
-    block-quantised int8 moments of ``train/optim8bit.py``."""
-    params = list(trainable.values())
-    if adam_8bit:
-        from aniportrait_tpu_torch.train.optim8bit import AdamW8bit
+    block-quantised int8 moments of ``train/optim8bit.py``.  With a
+    ``mesh`` of more than one rank the state is sharded by whole parameters
+    (``parallel.Zero1``, ZeRO-1)."""
+    from aniportrait_tpu_torch.parallel.zero import Zero1, adamw_state_nbytes
+    from aniportrait_tpu_torch.train.optim8bit import AdamW8bit, state_nbytes
 
-        return AdamW8bit(params, lr=learning_rate, betas=betas, eps=eps,
-                         weight_decay=weight_decay)
-    return torch.optim.AdamW(params, lr=learning_rate, betas=betas, eps=eps,
+    def build(params):
+        if adam_8bit:
+            return AdamW8bit(params, lr=learning_rate, betas=betas, eps=eps,
                              weight_decay=weight_decay)
+        return torch.optim.AdamW(params, lr=learning_rate, betas=betas, eps=eps,
+                                 weight_decay=weight_decay)
+
+    params = list(trainable.values())
+    if mesh is None or mesh.size == 1:
+        return build(params)
+    return Zero1(params, build, mesh,
+                 state_nbytes if adam_8bit else adamw_state_nbytes)
 
 
 @torch.no_grad()
@@ -241,7 +273,7 @@ def train_step(modules: PipelineModules, optimizer: torch.optim.Optimizer,
                compute_dtype: torch.dtype = torch.float32,
                max_grad_norm: float = 1.0, draws: Optional[Draws] = None,
                generator: Optional[torch.Generator] = None,
-               accumulation_steps: int = 1, micro_step: int = 0,
+               accumulation_steps: int = 1, micro_step: int = 0, mesh=None,
                **loss_kwargs) -> Dict[str, torch.Tensor]:
     """One micro-step: loss and backward; on the last of
     ``accumulation_steps`` micro-steps (``micro_step`` counts from 0) also
@@ -249,7 +281,8 @@ def train_step(modules: PipelineModules, optimizer: torch.optim.Optimizer,
     ``compute_dtype=torch.bfloat16`` the forward and backward run under
     ``torch.autocast``.  Returns the loss, the gradient norm (None on a
     micro-step that does not step) and whether the weights moved (tensors on
-    the device, not synchronised)."""
+    the device, not synchronised).  Under ``mesh`` the batch is this rank's
+    rows and the loss returned is the global batch's."""
     dev = batch["pixel_values"].device.type
     autocast = (torch.autocast(dev, dtype=compute_dtype)
                 if compute_dtype != torch.float32 else nullcontext())
@@ -258,10 +291,13 @@ def train_step(modules: PipelineModules, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
     with autocast:
         loss = loss_fn(modules, batch, draws=draws, generator=generator,
-                       **loss_kwargs)
+                       mesh=mesh, **loss_kwargs)
     (loss / accumulation_steps if accumulation_steps > 1 else loss).backward()
+    loss = loss.detach()
+    if mesh is not None:
+        loss = mesh.world.all_reduce_(loss.float().clone()) / mesh.size
     if micro_step < accumulation_steps - 1:
-        return {"loss": loss.detach(), "grad_norm": None, "stepped": False}
+        return {"loss": loss, "grad_norm": None, "stepped": False}
     params = [p for group in optimizer.param_groups for p in group["params"]]
     for p in params:
         # a weight the loss does not reach (the last transformer block of the
@@ -269,6 +305,8 @@ def train_step(modules: PipelineModules, optimizer: torch.optim.Optimizer,
         # still decays it, as optax does; torch would skip it
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if mesh is not None:
+        all_reduce_mean_([p.grad for p in params], mesh.world)
     norm = clip_by_global_norm(params, max_grad_norm)
     optimizer.step()
-    return {"loss": loss.detach(), "grad_norm": norm, "stepped": True}
+    return {"loss": loss, "grad_norm": norm, "stepped": True}

@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phase entry      # the loader, pose2vid CLI and bench entries
     python3 chip_smoke.py --phase audio      # the audio-driven path and its serving core
     python3 chip_smoke.py --phase quality    # LPIPS, FiLM, -acc bench, weight validation, gates
+    python3 chip_smoke.py --phase multi      # sharded sampler, data-parallel training, 2 ranks
 
 Phases, each of which fails the run (nonzero exit) on any error:
 
@@ -135,6 +136,34 @@ Phases, each of which fails the run (nonzero exit) on any error:
    steps, 16 and 24 frames): the approximations' PSNR / SSIM against the
    exact path, held to ``docs/quality_gate*.json``, and ``compare_videos``
    (LPIPS on the card) on its exact and encoder-cache clips.
+12. multi (``multi``, run last): the port's ``parallel`` paths at
+   ``MULTI_RANKS`` ranks, which share the one card over gloo (NCCL refuses
+   two ranks on one device; gloo moves card tensors through the host), or
+   run over NCCL with a card each where there are enough, spawned by
+   ``parallel.launch.spawn`` after this process has built the kernels,
+   each rank's work held to this process's single-process run of the same
+   work: micro float32 samplers (exact windowed and fused, 256 px) within
+   ``MULTI_MICRO_ATOL``; (a) long clip A's exact windowed path and (b) the
+   bench's default config's whole-clip path with the CFG halves split, full size,
+   bf16, ``MULTI_STEPS`` steps: the frames' PSNR at least ``MULTI_PSNR_DB``,
+   every rank returning the same video, and each rank's K3 and K6 launches
+   as the model reckons them for its share; the full-width motion module's
+   all-to-all (frames to positions) against the unsharded module, float32
+   and bf16, K3 on half the positions a rank; (c) the data-parallel stage-1
+   trainer at full width, train_bs 2 (one row a rank), bf16 compute,
+   ``MULTI_STEPS`` steps with float32 AdamW under ZeRO-1 and as many with
+   8-bit AdamW: step-1 loss against the single-process train_bs 2 step
+   (``MULTI_LOSS_RTOL``) and its gradient norm before the clip
+   (``MULTI_GRAD_NORM_RTOL``), optimizer state per rank about half the
+   total, peak memory per rank, the full-size float32 ZeRO-1 state gathered
+   to rank 0 as a checkpoint takes it (seconds, peak memory, every owner's
+   bytes), and a micro float32 data-parallel step on the card against the
+   single process on the card (the averaged gradients within
+   ``MULTI_GRAD_RTOL`` of the largest, the norm before the clip, each
+   clear-gradient weight's move) and on the CPU (loss and weights); the
+   collectives' GB/s, over gloo beside the same with pinned host staging
+   done in the script.  A failure in any rank fails the phase.  The ranks' times are printed with the card's name and power
+   limit; where they share one card, they are no scaling numbers.
 
 The last line of standard output is the device summary JSON; the line before
 it lists the kernels.  Without a CUDA device the script exits nonzero.
@@ -2395,10 +2424,542 @@ def folded_small_seq_phase(results: dict) -> None:
     results.setdefault("K9", {})["launches"] = counts["K9"]
 
 
+# ------------------------------------------------------------ multi-rank
+MULTI_RANKS = 2  # ranks of the multi phase: over gloo on one card, NCCL on two
+MULTI_STEPS = 3  # DDIM steps of its sampler runs, trainer steps per optimizer
+# the multi phase's bounds.  Micro float32 on the card: a rank's video
+# equals the single process's within 1.5/255 (tests/test_parallel.py's: a
+# uint8 rounding flip), and that run's PSNR is printed beside the bf16
+# checks.  Full size in bf16, where a rank's UNet runs fewer rows than the
+# single process's (other GEMM and convolution algorithms, other bf16
+# roundings, grown by 3 steps of CFG 3.5): the frames' PSNR against the
+# single process at least MULTI_PSNR_DB (an rmse of 8 levels; a shard that
+# puts frames, windows or CFG halves in the wrong place gives noise-level
+# frames, under 15 dB on these random inputs).  The bf16 step-1 loss of the
+# data-parallel trainer against the single process's within
+# MULTI_LOSS_RTOL (the losses' bf16 forward differ by row order and by the
+# global BatchNorm statistics' summation); the micro float32 data-parallel
+# step on the card against the CPU's single process: the loss within
+# TRAIN_LOSS_RTOL and each weight within 2 lr + 1e-6 (Adam's first step
+# moves a weight by ~lr * sign(g), and a gradient that is zero but for
+# rounding may flip its sign).
+# The data-parallel step's gradient, which Adam's first move (~lr * sign(g))
+# hides: the micro float32 ranks' averaged gradients against the single
+# process on the card within MULTI_GRAD_RTOL of the largest gradient (the
+# CPU's float32 rounding, grown through the PoseGuider's eight BatchNorms,
+# reached 3.3e-5; tests/test_torch_parallel.py), the norm before the clip
+# within it, and where |g| is 10 x that bound each weight's move within
+# MULTI_MOVE_TOL lr plus two float32 spacings of the weight (a sign flip is
+# out there).  The full-size bf16 step-1 norm before the clip within
+# MULTI_GRAD_NORM_RTOL, as the loss.
+MULTI_MICRO_ATOL = 1.5 / 255
+MULTI_PSNR_DB = 30.0
+MULTI_LOSS_RTOL = 1e-2
+MULTI_GRAD_NORM_RTOL = 1e-2
+MULTI_MICRO_LR = 1e-5
+MULTI_GRAD_RTOL = 1e-4
+MULTI_MOVE_TOL = 1e-2
+
+
+def psnr_db(a, b) -> float:
+    """PSNR in dB of two float videos in [0, 1]."""
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return math.inf if mse == 0 else 10 * math.log10(1.0 / mse)
+
+
+def _micro_multi_cases():
+    """The multi phase's micro float32 sampler runs on the card: the exact
+    windowed path (context 8 / overlap 2, window batch 2) and window fusion
+    over 12 frames at 256x256 px, 2 steps."""
+    import numpy as np
+
+    rs = np.random.RandomState(7)
+    ref = rs.randint(0, 255, (256, 256, 3), np.uint8)
+    poses = [rs.randint(0, 255, (256, 256, 3), np.uint8) for _ in range(12)]
+    ctx = dict(context_frames=8, context_overlap=2)
+    return [("windowed", dict(ctx, window_batch=2), ref, poses),
+            ("fused", dict(ctx, window_fusion=True), ref, poses)]
+
+
+def _micro_multi_videos(mesh):
+    import torch
+
+    from aniportrait_tpu_torch import factory
+    from aniportrait_tpu_torch.pipelines import Pose2VideoPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    modules = factory.build_models("micro", "cuda", torch.float32, seed=0)
+    return {name: Pose2VideoPipeline(modules, mesh=mesh, **kw)(
+        ref, poses, None, 256, 256, len(poses), num_inference_steps=2, seed=1)
+        for name, kw, ref, poses in _micro_multi_cases()}
+
+
+def _multi_sampler_cases():
+    """(name, label, pipeline options, case, width, height, frames) of the
+    full-size bf16 sampler runs: (a) long clip A's exact windowed path, (b)
+    the bench's default config's whole-clip path."""
+    return [
+        ("a", "exact windowed 576x768, 28 frames, 3 windows, window batch 3",
+         dict(context_frames=16, context_overlap=4, window_batch=3),
+         _long_clip_case("A", 200, 576, 768, 28), 576, 768, 28),
+        ("b", "whole clip (bench default config) 512x512, 16 frames, CFG split",
+         {}, _long_clip_case("B", 300, 512, 512, 16), 512, 512, 16),
+    ]
+
+
+def _dp_batches(n: int, res: int, clip_res: int, seed: int):
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    return [_train_batch(rs, 2, res, clip_res) for _ in range(n)]
+
+
+def multi_rank(mesh) -> dict:
+    """What each rank of the multi phase runs (see ``multi_phase``);
+    returns its numbers and, from rank 0, the videos."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from aniportrait_tpu_torch import factory
+    from aniportrait_tpu_torch.ops import kernels as K
+    from aniportrait_tpu_torch.ops.kernels import build
+    from aniportrait_tpu_torch.parallel.mesh import shard_batch
+    from aniportrait_tpu_torch.pipelines import Pose2VideoPipeline
+    from aniportrait_tpu_torch.train import optim8bit
+    from aniportrait_tpu_torch.train.stage1 import Stage1Settings, train
+    from aniportrait_tpu_torch.train.train_step import apply_freeze, make_optimizer
+
+    build.library()  # the parent built it: this loads the same library
+    rank = mesh.rank
+    out = {"rank": rank, "backend": mesh.world.backend, "micro": _micro_multi_videos(mesh)}
+    digest = lambda v: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    modules = factory.build_models("full", "cuda", torch.bfloat16, seed=rank)
+    for name, _, kw, case, width, height, frames in _multi_sampler_cases():
+        pipe = Pose2VideoPipeline(modules, dtype=torch.bfloat16, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        video = pipe(case["ref_image"], case["pose_images"], None, width, height, frames,
+                     num_inference_steps=MULTI_STEPS, guidance_scale=3.5, seed=0)
+        out[name] = dict(seconds=time.perf_counter() - t0, counts=K.launch_counts(),
+                         phases=pipe.timer.report(), digest=digest(video),
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         window_batch=pipe.window_batch)
+        if rank == 0:
+            out[name]["video"] = np.round(video * 255).astype(np.uint8)
+        del pipe, video
+
+    # the motion module's all-to-all at full width: the top level's module
+    # (320 channels, 64x64 positions, 16 frames) on this rank's 8 frames
+    # against the unsharded module on all 16, in float32 and bf16
+    from aniportrait_tpu_torch.parallel.mesh import FrameShard, frame_sizes
+
+    mm = modules.denoising_unet.down_blocks[0].motion_modules[0]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((16, 320, 64, 64), generator=gen, device="cuda")
+    shard = FrameShard(mesh.world, frame_sizes(16, mesh.size))
+    a2a = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        mmd = mm.to(dtype)
+        torch.backends.cuda.matmul.allow_tf32 = dtype != torch.float32
+        torch.backends.cudnn.allow_tf32 = dtype != torch.float32
+        with torch.no_grad():
+            whole = mmd(x.to(dtype), 16)[shard.block].float()
+            K.reset_launch_counts()
+            part = mmd(x[shard.block].to(dtype), shard.sizes[rank], None, shard).float()
+            counts = K.launch_counts()
+        a2a[str(dtype).split(".")[-1]] = dict(
+            err=float((part - whole).abs().max()), scale=float(whole.abs().max()),
+            k3=counts["K3"], positions=frame_sizes(64 * 64, mesh.size)[rank])
+    out["a2a"] = a2a
+    del modules, mm, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) data-parallel stage-1 steps at full width: this rank's row of each
+    # train_bs 2 batch, float32 AdamW under ZeRO-1, then 8-bit AdamW
+    settings = Stage1Settings(seed=0)
+    train_models = factory.build_training_models(
+        "full", "cuda", seed=rank, scheduler_kwargs=settings.scheduler_kwargs())
+    trainable = apply_freeze(train_models)
+    batches = _dp_batches(MULTI_STEPS, settings.sample_size[0],
+                          train_models.clip.image_size, seed=11)
+    out["train"] = {}
+    for eight in (False, True):
+        opt = make_optimizer(trainable, settings.learning_rate, settings.adam_weight_decay,
+                             adam_8bit=eight, mesh=mesh)
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        history = train(settings, train_models, [shard_batch(b, mesh) for b in batches],
+                        max_steps=MULTI_STEPS, device="cuda", optimizer=opt, mesh=mesh)
+        out["train"]["8-bit" if eight else "float32"] = dict(
+            history=history, counts=K.launch_counts(),
+            state_bytes=optim8bit.state_bytes(opt),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if not eight:
+            out["gather"] = _zero1_gather(opt)
+        del opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    del train_models, trainable
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a micro float32 data-parallel step on the card (the parent holds it to
+    # the CPU's single process on the global batch and the same draws)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out["micro_dp"] = micro_dp_step(mesh, "cuda")
+
+    out["collective_gbps"] = _collective_rates(mesh)
+    return out
+
+
+def _zero1_gather(opt) -> dict:
+    """``opt.gather_state()`` (a ZeRO-1 checkpoint's gather to rank 0), timed,
+    with the device and host peaks, and a float64 sum of each state tensor:
+    of the ones this rank owns, and on rank 0 of every gathered one."""
+    import resource
+
+    import torch
+
+    index = {p: i for i, p in enumerate(opt.params)}
+    total = lambda st: {k: float(torch.sum(v, dtype=torch.float64))
+                        for k, v in st.items() if torch.is_tensor(v)}
+    own = {index[p]: total(st) for p, st in opt.state.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gathered = opt.gather_state()
+    seconds = time.perf_counter() - t0
+    return dict(seconds=seconds, own=own, params=len(opt.params),
+                device_extra_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+                host_peak_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+                gathered={index[p]: total(st) for p, st in gathered.items()},
+                gathered_bytes=sum(v.nbytes for st in gathered.values()
+                                   for v in st.values() if torch.is_tensor(v)))
+
+
+def _collective_rates(mesh) -> dict:
+    """GB/s of the port's all_reduce and broadcast (``parallel.mesh.Group``)
+    on 256 MiB of float32 on the card, and over gloo, which stages card
+    tensors through pinned host memory itself, of the same with the staging
+    done here: the comparison that let the port drop its own."""
+    import torch
+    import torch.distributed as dist
+
+    from aniportrait_tpu_torch.parallel.mesh import broadcast_tensors_
+
+    buf = torch.ones(1 << 26, device="cuda")
+
+    def staged(op):
+        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        host.copy_(buf)
+        op(host)
+        buf.copy_(host)
+
+    runs = {"all_reduce": lambda: mesh.world.all_reduce_(buf),
+            "broadcast": lambda: broadcast_tensors_([buf], mesh.world, 0)}
+    if mesh.world.backend == "gloo":
+        runs["all_reduce staged here"] = lambda: staged(dist.all_reduce)
+        runs["broadcast staged here"] = lambda: staged(lambda t: dist.broadcast(t, 0))
+    rates = {}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        rates[name] = buf.nbytes / (time.perf_counter() - t0) / 1e9
+    return rates
+
+
+def micro_dp_step(mesh, device: str) -> dict:
+    """One micro float32 stage-1 step on ``device`` of this rank's rows of a
+    global batch (train_bs 4 at 64 px) with the global batch's draws, from
+    numpy seeds: the models built on the CPU from seed 0, the BatchNorm
+    synchronised and the optimizer sharded over ``mesh`` (None: one
+    process).  Returns the loss, the gradient norm before the clip, the
+    trainables before and after the step and their gradients as the
+    optimizer took them (averaged over the ranks, clipped)."""
+    import numpy as np
+    import torch
+
+    from aniportrait_tpu_torch import factory
+    from aniportrait_tpu_torch.models.pose_guider import sync_batch_norm
+    from aniportrait_tpu_torch.parallel.mesh import shard_batch, shard_rows
+    from aniportrait_tpu_torch.train import train_step as ts
+    from aniportrait_tpu_torch.train.stage1 import Stage1Settings
+
+    settings = Stage1Settings(mixed_precision="no")
+    modules = factory.build_training_models(
+        "micro", "cpu", seed=0, frozen_dtype=torch.float32,
+        scheduler_kwargs=settings.scheduler_kwargs()).to(device)
+    b, res = 4, 64
+    rs = np.random.RandomState(12)
+    batch = _train_batch(rs, b, res, modules.clip.image_size)
+    hl = res // 8
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    draws = ts.Draws(eps_target=t(rs.randn(b, 4, hl, hl)), eps_ref=t(rs.randn(b, 4, hl, hl)),
+                     uncond=torch.tensor(False, device=device),
+                     noise=t(rs.randn(b, 1, 4, hl, hl)), offset=t(rs.randn(b, 1, 4, 1, 1)),
+                     t=torch.from_numpy(rs.randint(0, 1000, (b,))).to(device))
+    trainable = ts.apply_freeze(modules)
+    if mesh is not None:
+        sync_batch_norm(modules.pose_guider, mesh.world)
+        rows = shard_rows(b, mesh.size, mesh.rank)
+        batch, draws = shard_batch(batch, mesh), draws.rows(rows.start, rows.stop)
+    opt = ts.make_optimizer(trainable, MULTI_MICRO_LR, mesh=mesh)
+    before = {k: p.detach().cpu().numpy().copy() for k, p in trainable.items()}
+    out = ts.train_step(modules, opt, {k: torch.from_numpy(v).to(device)
+                                       for k, v in batch.items()},
+                        draws=draws, mesh=mesh)
+    return dict(loss=float(out["loss"]), grad_norm=float(out["grad_norm"]), before=before,
+                params={k: p.detach().cpu().numpy() for k, p in trainable.items()},
+                grads={k: p.grad.cpu().numpy() for k, p in trainable.items()})
+
+
+def step_mismatch(got: dict, want: dict, lr: float) -> dict:
+    """How far ``got``'s optimizer step (``micro_dp_step``'s keys) is from
+    ``want``'s, which starts from the same weights: the norm's relative
+    difference, the gradients' largest difference over the largest
+    gradient, and the weights whose gradient's sign is clear (|g| over 10 x
+    ``MULTI_GRAD_RTOL`` of the largest) that moved otherwise than ``want``'s
+    (by more than ``MULTI_MOVE_TOL`` lr plus two float32 spacings) or by
+    less than lr / 2."""
+    import numpy as np
+
+    scale = max(float(np.abs(g).max()) for g in want["grads"].values())
+    grad = max(float(np.abs(got["grads"][k] - g).max()) for k, g in want["grads"].items())
+    clear_n = off = still = 0
+    for k, g in want["grads"].items():
+        w0 = want["before"][k].astype(np.float64)
+        moved, want_moved = got["params"][k] - w0, want["params"][k] - w0
+        clear = np.abs(g) > 10 * MULTI_GRAD_RTOL * scale
+        bound = MULTI_MOVE_TOL * lr + 2 * np.spacing(np.abs(w0))
+        clear_n += int(clear.sum())
+        off += int((clear & (np.abs(moved - want_moved) > bound)).sum())
+        still += int((clear & (np.abs(moved) <= lr / 2)).sum())
+    return dict(norm=abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"],
+                grad=grad / scale, clear=clear_n, off=off, still=still)
+
+
+def multi_phase() -> None:
+    """The sharded sampler and the data-parallel trainer at MULTI_RANKS ranks
+    (gloo on the one card, or NCCL with a card each), against this
+    process's single-process runs of the same work (see the module doc)."""
+    import numpy as np
+    import torch
+
+    from aniportrait_tpu_torch import factory
+    from aniportrait_tpu_torch.ops.kernels import build
+    from aniportrait_tpu_torch.parallel.launch import spawn
+    from aniportrait_tpu_torch.pipelines import Pose2VideoPipeline
+    from aniportrait_tpu_torch.train.stage1 import Stage1Settings, train
+
+    t_phase = time.perf_counter()
+    build.library()  # once here, so the ranks do not both run nvcc
+    single = {"micro": _micro_multi_videos(None)}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    modules = factory.build_models("full", "cuda", torch.bfloat16, seed=0)
+    for name, _, kw, case, width, height, frames in _multi_sampler_cases():
+        pipe = Pose2VideoPipeline(modules, dtype=torch.bfloat16, **kw)
+        t0 = time.perf_counter()
+        video = pipe(case["ref_image"], case["pose_images"], None, width, height, frames,
+                     num_inference_steps=MULTI_STEPS, guidance_scale=3.5, seed=0)
+        single[name] = dict(seconds=time.perf_counter() - t0,
+                            video=np.round(video * 255).astype(np.uint8))
+    del modules, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    settings = Stage1Settings(seed=0)
+    train_models = factory.build_training_models(
+        "full", "cuda", seed=0, scheduler_kwargs=settings.scheduler_kwargs())
+    batches = _dp_batches(1, settings.sample_size[0], train_models.clip.image_size, seed=11)
+    t0 = time.perf_counter()
+    history = train(settings, train_models, batches, max_steps=1, device="cuda")
+    single["train"] = dict(loss=history[0]["loss"], grad_norm=history[0]["grad_norm"],
+                           seconds=time.perf_counter() - t0)
+    del train_models
+    gc.collect()
+    torch.cuda.empty_cache()
+    single["micro_dp"] = micro_dp_step(None, "cpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    single["micro_dp_card"] = micro_dp_step(None, "cuda")
+    t_single = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    ranks = spawn(multi_rank, MULTI_RANKS, timeout=900, threads=4)
+    t_ranks = time.perf_counter() - t0
+    gpu, cards = gpu_line(), torch.cuda.device_count()
+    shared = ("the ranks share ONE card, so their times are no scaling numbers"
+              if cards < MULTI_RANKS else "one card a rank")
+    log(f"[multi] {MULTI_RANKS} ranks over {ranks[0]['backend']} on {min(cards, MULTI_RANKS)} "
+        f"card(s) ({gpu}): {shared}; single-process references {t_single:.1f} s, ranks "
+        f"{t_ranks:.1f} s")
+    failed = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    for name, video in single["micro"].items():
+        for r in ranks:
+            err = float(np.abs(r["micro"][name] - video).max())
+            log(f"[multi] micro float32 {name} sampler, rank {r['rank']}: max |rank - "
+                f"single| {err:.3e} (tol {MULTI_MICRO_ATOL:.4g}), PSNR "
+                f"{psnr_db(r['micro'][name], video):.2f} dB")
+            check(err <= MULTI_MICRO_ATOL, f"micro {name} rank {r['rank']}")
+    for name, label, kw, case, width, height, frames in _multi_sampler_cases():
+        got = ranks[0][name]["video"]
+        db = psnr_db(got / 255.0, single[name]["video"] / 255.0)
+        same = len({r[name]["digest"] for r in ranks}) == 1
+        log(f"[multi] ({name}) {label}, {MULTI_STEPS} steps, CFG 3.5, bf16: PSNR against "
+            f"the single process {db:.2f} dB (floor {MULTI_PSNR_DB:g}); ranks return the "
+            f"same video: {same}; single process {single[name]['seconds']:.2f} s")
+        check(db >= MULTI_PSNR_DB and same, f"sampler {name}")
+        for r in ranks:
+            log(f"[multi] ({name}) rank {r['rank']}: {r[name]['seconds']:.2f} s, window "
+                f"batch {r[name]['window_batch']}, peak {r[name]['peak_gib']:.2f} GiB, "
+                f"launches {r[name]['counts']}; phases {r[name]['phases']}")
+            check(all(r[name]["counts"][k] > 0 for k in ("K2", "K3", "K4")),
+                  f"sampler {name} rank {r['rank']}: K2/K3/K4 never launched")
+        _multi_reckoning(name, ranks, width, height, frames, kw, check)
+    for r in ranks:
+        for dtype, a in r["a2a"].items():
+            tol = 1e-5 if dtype == "float32" else TOLERANCE["bfloat16"][0]
+            log(f"[multi] motion module all-to-all, full width (320 ch, 16 frames, "
+                f"64x64), {dtype}, rank {r['rank']}: max |sharded - unsharded| "
+                f"{a['err']:.3e} of {a['scale']:.3e} (tol {tol:g} of it); K3 launches "
+                f"{a['k3']} on {a['positions']} of 4096 positions")
+            check(a["err"] <= tol * a["scale"] and a["k3"] == 2
+                  and a["positions"] == 4096 // MULTI_RANKS, f"a2a {dtype} rank {r['rank']}")
+    for opt in ("float32", "8-bit"):
+        total = sum(r["train"][opt]["state_bytes"] for r in ranks)
+        for r in ranks:
+            t = r["train"][opt]
+            steps = ", ".join(f"{h['seconds']:.2f}" for h in t["history"])
+            log(f"[multi] (c) data-parallel stage 1, {opt} AdamW under ZeRO-1, rank "
+                f"{r['rank']}: losses {[round(h['loss'], 6) for h in t['history']]}, step "
+                f"seconds {steps}; optimizer state {t['state_bytes'] / 2**30:.3f} GiB of "
+                f"{total / 2**30:.3f} ({t['state_bytes'] / total:.1%}); peak "
+                f"{t['peak_gib']:.2f} GiB; launches {t['counts']}")
+            check(all(math.isfinite(h["loss"]) for h in t["history"]),
+                  f"train {opt} rank {r['rank']} losses")
+            check(all(t["counts"][k] > 0 for k in ("K2", "K5a", "K5b")),
+                  f"train {opt} rank {r['rank']}: K2/K5a/K5b never launched")
+            check(abs(t["state_bytes"] / total - 1 / MULTI_RANKS) < 0.05,
+                  f"train {opt} rank {r['rank']}: state share")
+    first = ranks[0]["train"]["float32"]["history"][0]
+    rel = abs(first["loss"] - single["train"]["loss"]) / abs(single["train"]["loss"])
+    # the 8-bit runs go on from the float32 runs' weights: step 1 is float32's
+    nrel = [abs(r["train"]["float32"]["history"][0]["grad_norm"]
+                - single["train"]["grad_norm"]) / single["train"]["grad_norm"] for r in ranks]
+    log(f"[multi] (c) step-1 loss, {MULTI_RANKS} ranks {first['loss']:.6f} against the single "
+        f"process's train_bs 2 step {single['train']['loss']:.6f}: rel err {rel:.2e} "
+        f"(tol {MULTI_LOSS_RTOL:g}); gradient norm before the clip {first['grad_norm']:.6f} "
+        f"against {single['train']['grad_norm']:.6f}: rel err, each rank, at most {max(nrel):.2e} (tol {MULTI_GRAD_NORM_RTOL:g}); single process "
+        f"{single['train']['seconds']:.2f} s")
+    check(rel <= MULTI_LOSS_RTOL, "train step-1 loss")
+    check(max(nrel) <= MULTI_GRAD_NORM_RTOL, "train step-1 gradient norm")
+    g = ranks[0]["gather"]
+    owned = {i: v for r in ranks for i, v in r["gather"]["own"].items()}
+    sums_ok = (len(g["gathered"]) == len(owned) == g["params"] and all(
+        math.isclose(g["gathered"][i][k], v, rel_tol=1e-9, abs_tol=1e-9)
+        for i, st in owned.items() for k, v in st.items()))
+    total = sum(r["train"]["float32"]["state_bytes"] for r in ranks)
+    log(f"[multi] (c) full-size float32 ZeRO-1 state gathered to rank 0 (a checkpoint's "
+        f"gather): {g['gathered_bytes'] / 2**30:.3f} of {total / 2**30:.3f} GiB in "
+        f"{g['seconds']:.2f} s; every owner's tensors' sums equal: {sums_ok}; card memory "
+        + ", ".join(f"rank {r['rank']} +{r['gather']['device_extra_gib']:.3f} GiB" for r in ranks)
+        + "; host peak " + ", ".join(f"rank {r['rank']} {r['gather']['host_peak_gib']:.2f} GiB"
+                                     for r in ranks))
+    check(sums_ok and g["gathered_bytes"] == total, "ZeRO-1 gather to rank 0")
+    want, card = single["micro_dp"], single["micro_dp_card"]
+    for r in ranks:
+        got = r["micro_dp"]
+        lrel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        werr = max(float(np.abs(got["params"][k] - w).max()) for k, w in want["params"].items())
+        m = step_mismatch(got, card, MULTI_MICRO_LR)
+        log(f"[multi] (c) micro float32 data-parallel step on the card, rank {r['rank']}, "
+            f"against the CPU's single process: loss rel err {lrel:.2e} (tol "
+            f"{TRAIN_LOSS_RTOL:g}), max weight difference {werr:.3e} (tol "
+            f"{2 * MULTI_MICRO_LR + 1e-6:g}); against the card's single process: gradient "
+            f"{m['grad']:.2e} of the largest (tol {MULTI_GRAD_RTOL:g}), norm before the clip "
+            f"rel err {m['norm']:.2e} (tol {MULTI_GRAD_RTOL:g}), of {m['clear']} "
+            f"clear-gradient weights {m['off']} moved otherwise and {m['still']} by under "
+            f"lr / 2")
+        check(lrel <= TRAIN_LOSS_RTOL and werr <= 2 * MULTI_MICRO_LR + 1e-6,
+              f"micro data-parallel step rank {r['rank']}")
+        check(m["grad"] <= MULTI_GRAD_RTOL and m["norm"] <= MULTI_GRAD_RTOL and m["clear"] > 0
+              and m["off"] == 0 and m["still"] == 0,
+              f"micro data-parallel gradient rank {r['rank']}")
+    for r in ranks:
+        log(f"[multi] collectives over {r['backend']}, 256 MiB float32 on the card, rank "
+            f"{r['rank']} ({gpu}): " + ", ".join(f"{k} {v:.2f} GB/s"
+                                                 for k, v in r["collective_gbps"].items()))
+    log(f"[multi] phase {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise SystemExit(f"multi phase failed: {failed}")
+
+
+def _multi_reckoning(name: str, ranks, width: int, height: int, frames: int, kw: dict,
+                     check) -> None:
+    """K6 and K3 launches of each rank of sampler run ``name`` against the
+    model's reckoning for that rank's share: (a) each rank's UNet calls on
+    its windows; (b) each rank's calls on its CFG half of the clip."""
+    import torch
+
+    from aniportrait_tpu_torch import factory
+    from aniportrait_tpu_torch.parallel.mesh import shard_rows
+    from aniportrait_tpu_torch.pipelines.context import uniform_context_windows
+
+    with torch.device("meta"):
+        unet = factory.make_models("full")["denoising_unet"]
+    hlat, wlat = height // 8, width // 8
+    n = len(ranks)
+    for r in ranks:
+        if name == "a":
+            wb = r[name]["window_batch"]
+            table = uniform_context_windows(0, frames, kw["context_frames"], 1,
+                                            kw["context_overlap"])
+            pad_to = -(-len(table) // wb) * wb
+            share = range(pad_to)[shard_rows(pad_to, n, r["rank"])]
+            local = -(-wb // n)
+            calls = [min(local, share.stop - i) for i in range(share.start, share.stop, local)]
+            rows = [2 * c for c in calls]
+            win_frames = kw["context_frames"]
+        else:
+            rows, win_frames = [1], frames
+        k3 = k6 = 0
+        for nrows in rows:
+            routes = temporal_routes(unet, hlat, wlat, nrows, win_frames)
+            k3 += MULTI_STEPS * sum(1 for _, _, rt in routes if rt == "K3")
+            k6 += MULTI_STEPS * sum(1 for _, _, rt in routes if rt == "K6")
+        counts = r[name]["counts"]
+        log(f"[multi] ({name}) rank {r['rank']}: K3 {counts['K3']} (reckoned {k3}), K6 "
+            f"{counts['K6']} (reckoned {k6}) over {len(rows)} UNet call(s) a step of "
+            f"{rows} rows")
+        check(counts["K3"] == k3 and counts["K6"] == k6,
+              f"sampler {name} rank {r['rank']}: K3/K6 launches differ from the reckoning")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase", choices=("all", "kernels", "long-clip", "train", "tok-ab",
-                                            "entry", "audio", "quality"),
+                                            "entry", "audio", "quality", "multi"),
                         default="all")
     args = parser.parse_args()
 
@@ -2446,6 +3007,10 @@ def main() -> int:
     if args.phase in ("all", "tok-ab"):
         tok_ab_phase(results)
         folded_small_seq_phase(results)
+    if args.phase in ("all", "multi"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        multi_phase()
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name=f"{kid} {SOURCES[kid][0]}", route="cuda", source=SOURCES[kid][1],

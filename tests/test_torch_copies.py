@@ -537,3 +537,23 @@ def test_tracker_and_prefetch_equal_the_originals(tmp_path):
             for x in mod.prefetch(items(), depth=2):
                 got.append(x)
         assert got == list(range(5))
+
+
+@pytest.mark.parametrize("name", ["vid2pose", "generate_ref_pose", "prepare_video",
+                                  "preprocess_dataset"])
+def test_data_prep_scripts_are_copies_of_the_originals(name):
+    """The port's data-preparation scripts are the JAX scripts' code with the
+    port's utils and an ``argv`` for ``main`` (their outputs are held to the
+    originals' in tests/test_torch_dataprep.py)."""
+    def code(path, *swaps):
+        text = path.read_text().split('"""', 2)[2]  # past the module docstring
+        for a, b in swaps:
+            text = text.replace(a, b)
+        return text.strip()
+
+    port = code(ROOT / "aniportrait_tpu_torch" / "scripts" / f"{name}.py")
+    jax = code(ROOT / "scripts" / f"{name}.py",
+               ("aniportrait_tpu.utils", "aniportrait_tpu_torch.utils"),
+               ("def main():", "def main(argv=None):"),
+               ("parser.parse_args()", "parser.parse_args(argv)"))
+    assert port == jax

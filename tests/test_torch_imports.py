@@ -5,7 +5,8 @@ any module under them) is in sys.modules.  The GPU smoke's path (factory,
 pipeline, kernels, a whole-clip generation; the loader and the pose2vid
 CLI's generation; the audio models, the audio loader and the serving core's
 request on arrays; FiLM interpolation on a clip tensor, LPIPS and the model
-trees of weight validation) loads none of them either."""
+trees of weight validation; the pipeline over a mesh) loads none of them
+either."""
 
 import os
 import pkgutil
@@ -33,7 +34,13 @@ def test_port_imports_no_jax():
             "aniportrait_tpu_torch.weights.validate",
             "aniportrait_tpu_torch.scripts.quality_gate",
             "aniportrait_tpu_torch.scripts.quality_speed_gate",
-            "aniportrait_tpu_torch.scripts.validate_weights"} <= set(names)
+            "aniportrait_tpu_torch.scripts.validate_weights",
+            "aniportrait_tpu_torch.parallel.mesh", "aniportrait_tpu_torch.parallel.zero",
+            "aniportrait_tpu_torch.parallel.launch",
+            "aniportrait_tpu_torch.scripts.vid2pose",
+            "aniportrait_tpu_torch.scripts.generate_ref_pose",
+            "aniportrait_tpu_torch.scripts.prepare_video",
+            "aniportrait_tpu_torch.scripts.preprocess_dataset"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -89,6 +96,11 @@ def test_smoke_path_loads_nothing_of_the_jax_package():
         "w.update({f'lin{i}': np.ones(c, np.float32) for i, (c, *_) in enumerate(quality._ALEX_CONVS)})\n"
         "assert quality.LPIPS(w)(img, img).shape == (1,)\n"
         "assert 'film' in validate.fullsize_model_trees('micro')\n"
+        "from aniportrait_tpu_torch.parallel import make_mesh\n"
+        "from aniportrait_tpu_torch.pipelines import Pose2VideoPipeline\n"
+        "meshed = Pose2VideoPipeline(pipe.m, dtype=pipe.dtype, mesh=make_mesh())\n"
+        "assert meshed(img, [img, img], None, 64, 64, 2, num_inference_steps=1).shape == "
+        "(2, 64, 64, 3)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {REFUSED!r})\n"
         "assert not bad, bad\n"
     )

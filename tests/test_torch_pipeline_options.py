@@ -218,5 +218,9 @@ def test_build_pipeline_passes_the_options():
                 context_rotate=True)
     pipe = factory.build_pipeline("micro", "cpu", **opts)
     assert {k: getattr(pipe, k) for k in opts} == opts
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Pose2VideoPipeline(pipe.m, mesh=object())
+    # a mesh no longer raises: a one-rank mesh (no process group) keeps the
+    # window batch, which the JAX rounding leaves as it is on one device
+    from aniportrait_tpu_torch.parallel import make_mesh
+
+    meshed = Pose2VideoPipeline(pipe.m, mesh=make_mesh(), window_batch=3)
+    assert meshed.mesh.size == 1 and meshed.window_batch == 3
