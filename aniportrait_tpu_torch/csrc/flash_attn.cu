@@ -1,8 +1,10 @@
-// Flash-attention forward, float32 form: one templated kernel on the FMA
-// units behind four entry points of ops/kernels/flash.py.  The C entry points
-// at the end of this file take both dtypes and choose the form by dtype
-// alone: float32 runs this kernel, bf16 the tensor-core kernel of
-// flash_attn_sm90.cu, which computes the same function in every mode.
+// Flash-attention forward, float32 form above head dim 128: one templated
+// kernel on the FMA units behind four entry points of ops/kernels/flash.py.
+// The C entry points at the end of this file take both dtypes and choose the
+// form by dtype and head dim: bf16 runs the tensor-core kernel of
+// flash_attn_sm90.cu, float32 with d <= 128 the 3xTF32 tensor-core kernel of
+// flash_attn_tf32x3_sm90.cu, float32 above 128 this kernel; all three
+// compute the same function in every mode.
 //
 // Replaces these Pallas TPU kernels of aniportrait_tpu/ops/pallas_attention.py:
 //   K1  _tok_flash_banked_impl / _tokf_banked_kernel: token-layout (B, S, C)
@@ -49,9 +51,12 @@
 // 8 heads, 16 rows; 4096 x 8192 logits per head for K1) the work is
 // 4*S*Skv*d FLOPs per head against S*d + 2*Skv*d loaded elements, far above
 // the card's ~295 FLOP/byte ridge, so the kernel is compute bound.  This form
-// computes on the float32 FMA units (67 TFLOP/s peak): the float32 reference
+// computes on the float32 FMA units (67 TFLOP/s peak).  The float32 reference
 // runs (micro pipeline, micro train step against the CPU) need float32
-// products, which TF32 tensor cores would round.
+// products, which one TF32 tensor-core product would round to 11 bits; the
+// 3xTF32 split of flash_attn_tf32x3_sm90.cu keeps ~20-21 bits on the tensor
+// cores, so every float32 call the port makes (d = 40, 64, 80, 88) runs
+// there, and this kernel only float32 at d > 128, which no path takes.
 //
 // Design against that bound and the card's differences from the TPU:
 //   * one block = 64 query rows of one (batch row, head); the TPU grid's
@@ -63,16 +68,31 @@
 //     logits tile and the same 8 rows x DP/16 head columns of the output, so
 //     the row statistics never leave the 16 lanes of a half warp
 //     (shuffle reductions only).
-//   * head dims 40, 80, 88, 160 are not powers of two: the head tile is
-//     padded in shared memory to DP = round_up(d, 16) and zero filled, loads
-//     are masked, and DP is a template parameter (16 ... 256).
-//   * float32 inputs (bf16 goes to flash_attn_sm90.cu), float32 accumulation
-//     and softmax; q is pre-multiplied by scale * log2(e) so the softmax runs
-//     on exp2.
+//   * head dims such as 160 are not powers of two: the head tile is padded
+//     in shared memory to DP = round_up(d, 16) and zero filled, loads are
+//     masked, and DP is a template parameter (144 ... 256).
+//   * float32 inputs (bf16 goes to flash_attn_sm90.cu, float32 at d <= 128
+//     to flash_attn_tf32x3_sm90.cu), float32 accumulation and softmax; q is
+//     pre-multiplied by scale * log2(e) so the softmax runs on exp2.
 #include "flash_fwd.cuh"
 
 namespace aniportrait {
 namespace {
+
+// Calls CASE(DP) for the head tile DP = round_up(d, 16) in 144 ... 256, the
+// FMA form's head dims, and returns cudaErrorInvalidValue for any other d.
+#define ANIPORTRAIT_FMA_HEAD_DIM_SWITCH(d, CASE) \
+  switch (((d) + 15) / 16) {                     \
+    case 9: CASE(144)                            \
+    case 10: CASE(160)                           \
+    case 11: CASE(176)                           \
+    case 12: CASE(192)                           \
+    case 13: CASE(208)                           \
+    case 14: CASE(224)                           \
+    case 15: CASE(240)                           \
+    case 16: CASE(256)                           \
+    default: return cudaErrorInvalidValue;       \
+  }
 
 constexpr int BQ = 64;
 constexpr int BKV = 64;
@@ -307,7 +327,7 @@ cudaError_t launch_lse(const FlashArgs& a, cudaStream_t stream) {
 
 cudaError_t dispatch(const FlashArgs& a, cudaStream_t stream) {
 #define ANIPORTRAIT_CASE(DP) return launch_lse<DP>(a, stream);
-  ANIPORTRAIT_HEAD_DIM_SWITCH(a.d, ANIPORTRAIT_CASE)
+  ANIPORTRAIT_FMA_HEAD_DIM_SWITCH(a.d, ANIPORTRAIT_CASE)
 #undef ANIPORTRAIT_CASE
 }
 
@@ -328,7 +348,7 @@ cudaError_t launch_tok(int mode, const FlashArgs& fast, const FlashArgs& fallbac
 cudaError_t dispatch_tok(int mode, const FlashArgs& fast, const FlashArgs& fallback,
                          cudaStream_t stream) {
 #define ANIPORTRAIT_CASE(DP) return launch_tok<DP>(mode, fast, fallback, stream);
-  ANIPORTRAIT_HEAD_DIM_SWITCH(fast.d, ANIPORTRAIT_CASE)
+  ANIPORTRAIT_FMA_HEAD_DIM_SWITCH(fast.d, ANIPORTRAIT_CASE)
 #undef ANIPORTRAIT_CASE
 }
 
@@ -350,6 +370,8 @@ extern "C" int aniportrait_flash_fwd(int dtype, const void* q, const void* k, co
               scale * kLog2e, nullptr, nullptr, nullptr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16) return static_cast<int>(flash_fwd_sm90(a, RUNMAX, st));
+  if (dtype == kFloat32 && d <= kTf32x3MaxHeadDim)
+    return static_cast<int>(flash_fwd_tf32x3(a, RUNMAX, st));
   if (dtype == kFloat32) return static_cast<int>(dispatch(a, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -381,6 +403,10 @@ extern "C" int aniportrait_tok_flash_fwd(int dtype, int mode, const void* q, con
     // the fixed-shift launch, then the guard's predicated running-max one
     cudaError_t err = flash_fwd_sm90(fast, mode, st);
     return static_cast<int>(err != cudaSuccess ? err : flash_fwd_sm90(fallback, RUNMAX, st));
+  }
+  if (dtype == kFloat32 && d <= kTf32x3MaxHeadDim) {
+    cudaError_t err = flash_fwd_tf32x3(fast, mode, st);
+    return static_cast<int>(err != cudaSuccess ? err : flash_fwd_tf32x3(fallback, RUNMAX, st));
   }
   if (dtype == kFloat32) return static_cast<int>(dispatch_tok(mode, fast, fallback, st));
   return static_cast<int>(cudaErrorInvalidValue);

@@ -1,7 +1,9 @@
-// The flash forward's arguments and softmax modes, shared by its two forms:
-// the float32 FMA kernel (flash_attn.cu) and the bf16 tensor-core kernel
-// (flash_attn_sm90.cu).  The C entry points in flash_attn.cu choose the form
-// by dtype alone.
+// The flash forward's arguments and softmax modes, shared by its three
+// forms: the bf16 tensor-core kernel (flash_attn_sm90.cu), the float32
+// tensor-core kernel in 3xTF32 for head dims up to 128
+// (flash_attn_tf32x3_sm90.cu) and the float32 FMA kernel above 128
+// (flash_attn.cu).  The C entry points in flash_attn.cu choose the form by
+// dtype and head dim.
 #pragma once
 
 #include "common.cuh"
@@ -35,5 +37,10 @@ struct FlashArgs {
 
 // The bf16 tensor-core form (flash_attn_sm90.cu): one launch of `mode`.
 cudaError_t flash_fwd_sm90(const FlashArgs& a, int mode, cudaStream_t stream);
+
+// The float32 tensor-core form (flash_attn_tf32x3_sm90.cu), d <= 128: one
+// launch of `mode`.
+constexpr int kTf32x3MaxHeadDim = 128;
+cudaError_t flash_fwd_tf32x3(const FlashArgs& a, int mode, cudaStream_t stream);
 
 }  // namespace aniportrait

@@ -37,6 +37,7 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     flash.tensor_core_launches = 0
+    flash.tf32x3_launches = 0
     flash.tensor_core_bwd_launches = 0
     temporal.tensor_core_launches = 0
     small_seq.tensor_core_launches = 0

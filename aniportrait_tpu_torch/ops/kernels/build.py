@@ -25,8 +25,9 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 # --split-compile=0 runs the optimiser over a source's kernel instantiations
-# on all cores (flash_attn.cu holds 160 of them): 39.3 s for the whole build
-# on the card's 8-core machine against 85.0 s without it.
+# on all cores (flash_attn_tf32x3_sm90.cu holds 80 of them, flash_attn.cu 40;
+# when flash_attn.cu held 160: 39.3 s for the whole build on the card's
+# 8-core machine against 85.0 s without it).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -58,6 +59,8 @@ _SIGNATURES = {
                                   _I, _I, ctypes.c_float, ctypes.c_float, _P],
     # dtype, q, k, v, o, n, t, seq, d, n_valid, stream
     "aniportrait_ssa_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # d, mode, lse, int[5] out: the 3xTF32 forward's block (no launch)
+    "aniportrait_flash_tf32x3_shape": [_I, _I, _I, _P],
 }
 
 

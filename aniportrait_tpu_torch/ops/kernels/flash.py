@@ -1,6 +1,7 @@
 """Wrappers of the flash-attention CUDA kernels (``csrc/flash_attn.cu``,
-``csrc/flash_attn_sm90.cu``, ``csrc/flash_bwd.cu``,
-``csrc/flash_bwd_sm90.cu``) and their plain PyTorch versions.
+``csrc/flash_attn_sm90.cu``, ``csrc/flash_attn_tf32x3_sm90.cu``,
+``csrc/flash_bwd.cu``, ``csrc/flash_bwd_sm90.cu``) and their plain PyTorch
+versions.
 
 Five entry points, one per Pallas kernel they replace
 (``aniportrait_tpu/ops/pallas_attention.py``); the first four share the
@@ -35,9 +36,13 @@ Each returns what :func:`tok_flash` returns and keeps the guard's int32 flag
 (0: the fast path's output stands; 1: it tripped and the running-max result
 replaced it) in ``.last_guard``.
 
-The forward has two forms, chosen by dtype alone (:func:`forward_form`):
-bf16 runs the tensor-core kernel (``csrc/flash_attn_sm90.cu``: wgmma, TMA
-loads), float32 the FMA kernel (``csrc/flash_attn.cu``).  The backward has
+The forward has three forms, chosen by dtype and head dim
+(:func:`forward_form`): bf16 runs the tensor-core kernel
+(``csrc/flash_attn_sm90.cu``: wgmma, TMA loads), float32 with d <= 128 the
+tensor-core kernel in 3xTF32 (``csrc/flash_attn_tf32x3_sm90.cu``: mma.sync,
+each operand split into two TF32 parts, three products; its arithmetic in
+torch is :func:`plain_attention_tf32x3`), float32 above 128 the FMA kernel
+(``csrc/flash_attn.cu``).  The backward has
 two forms too (:func:`backward_form`): bf16 with d <= 128 runs the
 tensor-core kernel (``csrc/flash_bwd_sm90.cu``: one kernel over key tiles,
 dq summed into a float32 workspace by bulk reductions), float32 and bf16 above
@@ -47,11 +52,13 @@ other form.
 On a CPU tensor each wrapper returns its plain version; on a CUDA tensor it
 launches the kernel or raises.  Each counts its launches in ``.launches``;
 ``tensor_core_launches`` counts the forward calls that took the bf16
-tensor-core form, ``tensor_core_bwd_launches`` the backward calls.
+tensor-core form, ``tf32x3_launches`` those that took the float32 one,
+``tensor_core_bwd_launches`` the backward calls.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -60,21 +67,26 @@ from aniportrait_tpu_torch.ops.kernels import build
 
 MAX_HEAD_DIM = 256
 BWD_WGMMA_MAX_HEAD_DIM = 128
+TF32X3_MAX_HEAD_DIM = 128
+LOG2E = math.log2(math.e)
 tensor_core_launches = 0
+tf32x3_launches = 0
 tensor_core_bwd_launches = 0
 
 
 def forward_form(dtype, d: int) -> str:
     """The form of the flash forward a CUDA call with operands of ``dtype``
     and head dim ``d`` takes: ``"wgmma"`` (bf16: tensor cores,
-    ``csrc/flash_attn_sm90.cu``) or ``"fma"`` (float32: FMA units,
-    ``csrc/flash_attn.cu``).  The C entry points choose the same way."""
+    ``csrc/flash_attn_sm90.cu``), ``"tf32x3"`` (float32 with d <= 128:
+    tensor cores in 3xTF32, ``csrc/flash_attn_tf32x3_sm90.cu``) or ``"fma"``
+    (float32 above 128: FMA units, ``csrc/flash_attn.cu``).  The C entry
+    points choose the same way."""
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} unsupported (1 ... {MAX_HEAD_DIM})")
     if dtype == torch.bfloat16:
         return "wgmma"
     if dtype == torch.float32:
-        return "fma"
+        return "tf32x3" if d <= TF32X3_MAX_HEAD_DIM else "fma"
     raise TypeError(f"dtype {dtype} not supported (bf16 or float32)")
 
 
@@ -97,10 +109,35 @@ def wgmma_block_kv(d: int) -> int:
     return 128 if d <= 128 else 64
 
 
+def tf32x3_block_kv(d: int) -> int:
+    """Keys per online-softmax step of the float32 tensor-core form at head
+    dim ``d`` (``Tf32Tile<DP>::BKV`` in ``csrc/flash_attn_tf32x3_sm90.cu``:
+    64 up to the 64-column head tile, 32 above): the tile
+    :func:`plain_attention_tf32x3` takes to sum as that kernel does.
+    ``tests/test_torch_cuda.py`` holds it to :func:`tf32x3_shape`."""
+    return 64 if d <= 64 else 32
+
+
+def tf32x3_shape(d: int, mode: int = 0, lse: bool = False) -> dict:
+    """The block the float32 tensor-core form launches at head dim ``d`` in
+    softmax ``mode`` (0: running max, with the LSE where ``lse``), as its
+    source reports it without launching: ``dp`` (the head tile),
+    ``block_kv``, ``threads``, ``smem_bytes`` (dynamic shared memory) and
+    ``blocks_per_sm`` (CUDA's occupancy API: registers and shared memory).
+    Builds the kernels; needs the card."""
+    shape = (ctypes.c_int * 5)()
+    build.check(build.library().aniportrait_flash_tf32x3_shape(d, mode, int(lse), shape),
+                "tf32x3_shape")
+    return dict(zip(("dp", "block_kv", "threads", "smem_bytes", "blocks_per_sm"), shape))
+
+
 def _count_form(q, d):
-    global tensor_core_launches
-    if forward_form(q.dtype, d) == "wgmma":
+    global tensor_core_launches, tf32x3_launches
+    form = forward_form(q.dtype, d)
+    if form == "wgmma":
         tensor_core_launches += 1
+    elif form == "tf32x3":
+        tf32x3_launches += 1
 
 
 # ------------------------------------------------------------ plain versions
@@ -162,6 +199,93 @@ def plain_attention_tiled(q, k, v, block_kv, drop_tail=None, kv_split=None):
         acc = acc * alpha + pv
         m = m_new
     out = acc / torch.where(l == 0, torch.ones_like(l), l)
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def round_tf32(x):
+    """``cvt.rna.tf32.f32`` in torch bit operations: float32 ``x`` rounded
+    to TF32's 10 stored significand bits, to nearest with ties away from
+    zero.  The magnitude's bit pattern gets half the weight of the 13 bits
+    dropped (0x1000) added, then those bits are cleared; a carry moves into
+    the exponent, so subnormals round on the same grid and a value past the
+    largest TF32 number (the largest finite float32 among them) becomes Inf,
+    as IEEE rounding overflows.  Inf and NaN pass through unchanged, as cvt
+    passes them (a NaN stays a NaN; its payload is not a contract).
+    Returns float32 with the low 13 bits of every finite value zero.  The
+    kernel rounds the same way by the same add, leaving the low bits for the
+    tensor cores to ignore."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"round_tf32: float32 only, got {x.dtype}")
+    bits = x.view(torch.int32)
+    # on the int32 view the sign bit stays out of the sum: a finite
+    # magnitude is at most 0x7f7fffff, so + 0x1000 cannot reach bit 31
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def split_tf32(x):
+    """``(big, small)`` as the kernel splits a float32 operand: ``big =
+    round_tf32(x)``, ``small = x - big`` (exact in float32) truncated to
+    TF32, as the tensor cores read it (its low 13 bits cleared); ``|x - big
+    - small| < 2^-21 |x|`` for normal ``x``.  An Inf or NaN ``x`` is its own
+    ``big`` here (the kernel's add may turn a NaN's into any value) and has
+    a NaN ``small`` in both, so every product it enters is NaN."""
+    big = round_tf32(x)
+    r = x - big
+    truncated = (r.view(torch.int32) & -0x2000).view(torch.float32)
+    return big, torch.where(torch.isfinite(r), truncated, r)
+
+
+def _product_tf32(a, b, eq, terms):
+    """einsum ``eq`` of float32 ``a`` and ``b`` as the tensor cores take it:
+    ``terms=3``: small*big + big*small, then + big*big (each product of two
+    TF32 values is exact in float32, the sums round); ``terms=1``: big*big
+    alone, one TF32 product."""
+    ab, as_ = split_tf32(a)
+    bb, bs = split_tf32(b)
+    if terms == 1:
+        return torch.einsum(eq, ab, bb)
+    if terms != 3:
+        raise ValueError(f"terms must be 1 or 3, got {terms}")
+    return (torch.einsum(eq, as_, bb) + torch.einsum(eq, ab, bs)) + torch.einsum(eq, ab, bb)
+
+
+def plain_attention_tf32x3(q, k, v, drop_tail=None, kv_split=None, *, terms=3):
+    """The float32 tensor-core forward's arithmetic
+    (``csrc/flash_attn_tf32x3_sm90.cu``), step by step in its order, on
+    float32 ``(B, S, H, D)`` operands: q times ``scale * log2(e)`` (both
+    rounded to float32 first, as the C entry point takes them), logits
+    q k^T in base 2 as :func:`_product_tf32` sums them, the online softmax
+    over tiles of ``tf32x3_block_kv(d)`` keys (running max, ``exp2``,
+    l summing the unrounded p), p split for the PV product the same way,
+    output ``acc / l`` (0 where ``l`` is 0).  Keys at or past ``kv_split``
+    are -inf for the rows flagged in ``drop_tail``.  ``terms=1`` takes one
+    TF32 product (big*big) in both products instead of three.  The sums
+    inside each product run in torch's order, not the tensor cores'.
+    Nothing on the main path calls it."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    bkv = tf32x3_block_kv(d)
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(
+        LOG2E, dtype=torch.float32)
+    qs = q.float() * scale.to(q.device)
+    kf, vf = k.float(), v.float()
+    m = torch.full((b, h, sq, 1), float("-inf"), device=q.device)
+    l = torch.zeros((b, h, sq, 1), device=q.device)
+    acc = torch.zeros((b, h, sq, d), device=q.device)
+    for k0 in range(0, skv, bkv):
+        s = _product_tf32(qs, kf[:, k0:k0 + bkv], "bqhd,bkhd->bhqk", terms)
+        if drop_tail is not None:
+            cols = torch.arange(k0, k0 + s.shape[-1], device=q.device) >= kv_split
+            mask = drop_tail.to(device=q.device, dtype=torch.bool)[:, None, None, None] & cols
+            s = s.masked_fill(mask, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))  # finite: key 0 is seen
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _product_tf32(p, vf[:, k0:k0 + bkv], "bhqk,bkhd->bhqd", terms)
+        m = m_new
+    out = acc * torch.where(l > 0, 1.0 / l, torch.zeros_like(l))
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 

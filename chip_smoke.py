@@ -20,11 +20,17 @@ Phases, each of which fails the run (nonzero exit) on any error:
    call that computes the same function (``F.scaled_dot_product_attention``,
    forward and backward for K5b), and compute the card's bound for the same
    work.  The guards of K7, K8 and K2u must hold on these random inputs.
-   The flash forward (K1, K2, K2u, K4, K5a, K7, K8) has two forms: every
+   The flash forward (K1, K2, K2u, K4, K5a, K7, K8) has three forms: every
    bf16 case must run the tensor-core kernel (``flash_attn_sm90.cu``, its
-   launch counter moves) and every float32 case the FMA kernel; each bf16
-   case also prints its error against ``flash.plain_attention_tiled``, the
-   tensor-core kernel's rounding contract.  The flash backward (K5b) and the
+   launch counter moves), every float32 case at d <= 128 the 3xTF32
+   tensor-core kernel (``flash_attn_tf32x3_sm90.cu``, its own counter
+   moves) and float32 above 128 the FMA kernel; each bf16 case also prints
+   its error against ``flash.plain_attention_tiled``, the tensor-core
+   kernel's rounding contract, each 3xTF32 case against
+   ``flash.plain_attention_tf32x3`` (its arithmetic, on the first batch
+   row's first 256 queries) and both bounds (3xTF32 and FMA), and each
+   float32 flash case the library call's own error against the plain
+   version.  The flash backward (K5b) and the
    temporal kernel (K3) have two forms too: bf16 must run the tensor-core
    kernel (``flash_bwd_sm90.cu``, ``temporal_attn_sm90.cu``; their counters
    move) and float32 the FMA kernel; bf16 K3 is held to the Pallas rounding
@@ -32,8 +38,9 @@ Phases, each of which fails the run (nonzero exit) on any error:
    error against the exact softmax.  So do the short-sequence kernels K6 and
    K9: bf16 must run ``small_seq_attn_sm90.cu`` (mma.sync) and float32 the
    FMA kernel.  The build's time and the tensor-core kernels' registers,
-   spills and shared memory per instantiation are printed; the backward and
-   the short-sequence kernels (K3, K6, K9) must not spill.
+   spills and shared memory per instantiation are printed (the 3xTF32
+   forward's with the blocks an SM they allow); the backward, the 3xTF32
+   forward and the short-sequence kernels (K3, K6, K9) must not spill.
 2. reference: the micro model through the pipeline on the GPU (kernels) and
    on the CPU (plain versions) from the same weights and latents, float32,
    2 steps: at 256 px, 8 frames, exact windowed sampler; and at 112x80 px
@@ -89,12 +96,13 @@ Phases, each of which fails the run (nonzero exit) on any error:
    bit for bit.
 9. audio (``audio``, run after the entry points): K4 at wav2vec2-base's
    self-attention (B=1, 12 heads, d=64, 1024 and 1800 frames) in float32
-   (the FMA form the audio models take) and bf16, held to its plain version
+   (the 3xTF32 form the audio models take) and bf16, held to its plain version
    and timed as in phase 1; Audio2Mesh and Audio2Pose at full size (random
    weights from seed 0), float32 with TF32 off, on the card against the CPU
    on a 2.5-s seeded WAV read back through ``prepare_audio_feature``
    (``AUDIO_REL_TOL``); a 40-s clip through Audio2Mesh, where K4 must
-   launch exactly once per encoder layer (12), on the card against the CPU;
+   launch exactly once per encoder layer (12), all on the 3xTF32 form, on
+   the card against the CPU;
    ``generate_head_pose`` on a 10.0-s clip, timed; one serving request
    through ``serving_core.animate`` with the models of
    ``load_serving_models`` (``AUDIO_CONFIG``, random weights, full size):
@@ -196,11 +204,14 @@ REF_LATENT_ATOL = 1e-3  # phase 2: float32 pipeline, GPU kernels vs CPU plain
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 TRAIN_STEPS = 5  # phase 5: trainer steps before the profiled one (>= 4)
 # The card's bound for a kernel's work: the larger of its matrix-product
-# FLOPs at the peak rate for the operands' type (bf16: dense tensor cores;
-# float32: the FMA units, as TF32 would round the operands) and the bytes it
-# must move (each input read once, each output written once) at the memory
-# rate (H100 SXM, NVIDIA's data sheet, at the 700 W limit).
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# FLOPs at the peak rate of the units its form runs on and the bytes it must
+# move (each input read once, each output written once) at the memory rate
+# (H100 SXM, NVIDIA's data sheet, at the 700 W limit).  bf16: the dense
+# tensor cores; float32 on the FMA units: 67 TFLOP/s; float32 in 3xTF32
+# (the flash forward at d <= 128): three TF32 products per float32 product
+# at the tensor cores' 495 TFLOP/s.  A float32 flash row prints both.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12}
+FLOP_FACTOR = {"tf32x3": 3}  # products the form computes per matrix FLOP
 PEAK_BYTES = 3.35e12
 
 SOURCES = {
@@ -233,16 +244,17 @@ SOURCES = {
     "K5b.stage2": ("flash_attention_bwd stage 2 B=16",
                    "aniportrait_tpu_torch/csrc/flash_bwd_sm90.cu",
                    "aniportrait_tpu/ops/pallas_attention.py:468"),
-    # K4 in float32 at wav2vec2's self-attention (its FMA form): the audio
-    # phase's B=1 S=1800 H=12 d=64 row, launches from the 40-s clip
+    # K4 in float32 at wav2vec2's self-attention (its 3xTF32 form): the
+    # audio phase's B=1 S=1800 H=12 d=64 row, launches from the 40-s clip
     "K4.audio": ("flash_attention wav2vec2 float32 B=1 S=1800 H=12 d=64",
-                 "aniportrait_tpu_torch/csrc/flash_attn.cu",
+                 "aniportrait_tpu_torch/csrc/flash_attn_tf32x3_sm90.cu",
                  "aniportrait_tpu/ops/pallas_attention.py:294"),
 }
 # the kernels of the shared flash forward: bf16 runs its tensor-core form
-# (the source above), float32 its FMA form (csrc/flash_attn.cu); so do K5b
-# (csrc/flash_bwd.cu), K3 (csrc/temporal_attn.cu), K6 and K9
-# (csrc/small_seq_attn.cu)
+# (the source above), float32 at d <= 128 its 3xTF32 tensor-core form
+# (csrc/flash_attn_tf32x3_sm90.cu) and above 128 its FMA form
+# (csrc/flash_attn.cu); K5b (csrc/flash_bwd.cu), K3 (csrc/temporal_attn.cu),
+# K6 and K9 (csrc/small_seq_attn.cu) run float32 on their FMA forms
 FLASH_FWD = ("K1", "K2", "K2u", "K4", "K5a", "K7", "K8")
 # kernel id -> the tensor-core counter its bf16 form moves (tensor_core_check)
 TENSOR_CORE = {**{k: "forward" for k in FLASH_FWD}, "K5b": "backward", "K3": "temporal",
@@ -266,6 +278,7 @@ def tensor_core_counts() -> dict:
     from aniportrait_tpu_torch.ops.kernels import flash, small_seq, temporal
 
     return {"forward": flash.tensor_core_launches,
+            "tf32x3": flash.tf32x3_launches,
             "backward": flash.tensor_core_bwd_launches,
             "temporal": temporal.tensor_core_launches,
             "small_seq": small_seq.tensor_core_launches}
@@ -274,10 +287,12 @@ def tensor_core_counts() -> dict:
 def tensor_core_check(phase: str, kernels=("forward",)) -> None:
     """The tensor-core kernels' launches since the last
     ``reset_launch_counts`` (``forward``: the flash forward, ``backward``:
-    the flash backward, ``temporal``: K3, ``small_seq``: K6 and K9); the
-    phase fails if one of ``kernels`` never ran."""
+    the flash backward, ``temporal``: K3, ``small_seq``: K6 and K9,
+    ``tf32x3``: the float32 flash forward); the phase fails if one of
+    ``kernels`` never ran."""
     counts = tensor_core_counts()
     log(f"[{phase}] tensor-core launches: flash forward (wgmma) {counts['forward']}, "
+        f"float32 flash forward (mma.sync 3xTF32) {counts['tf32x3']}, "
         f"flash backward (wgmma) {counts['backward']}, temporal (mma.sync) "
         f"{counts['temporal']}, short sequences K6/K9 (mma.sync) {counts['small_seq']}")
     never = [k for k in kernels if counts[k] == 0]
@@ -320,9 +335,10 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _bound(flops: float, nbytes: float, dtype_name: str):
-    """(least ms the card could take, what bounds it)."""
-    ops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
+def _bound(flops: float, nbytes: float, peak: str):
+    """(least ms the card could take, what bounds it); ``peak``: a key of
+    ``PEAK_FLOPS``, the dtype's name or the form ``tf32x3``."""
+    ops_ms = flops * FLOP_FACTOR.get(peak, 1) / PEAK_FLOPS[peak] * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -364,7 +380,8 @@ def _flash_flops(b, h, sq, skv, d, drop, split) -> float:
 def kernel_cases(dtype):
     """Cases ``dict(kid, label, run, plain, library, flops, nbytes)`` at the
     main paths' widths: K1-K4 at the pose2vid shapes, K5a/K5b at stage-1
-    training's (train_bs 2, 512 px)."""
+    training's (train_bs 2, 512 px); in float32 also K4 at d = 160, the
+    flash forward's FMA form."""
     import torch
     import torch.nn.functional as F
 
@@ -375,9 +392,11 @@ def kernel_cases(dtype):
     rand = lambda *s: torch.randn(*s, generator=g, device="cuda", dtype=dtype)
     cases = []
 
-    def case(kid, label, run, plain, library, flops, nbytes, guarded=None, tiled=None):
+    def case(kid, label, run, plain, library, flops, nbytes, guarded=None, tiled=None,
+             d=None, contract=None):
         cases.append(dict(kid=kid, label=label, run=run, plain=plain, library=library,
-                          flops=flops, nbytes=nbytes, guarded=guarded, tiled=tiled))
+                          flops=flops, nbytes=nbytes, guarded=guarded, tiled=tiled, d=d,
+                          contract=contract))
 
     def tiled_ref(q, k, v, drop=None, split=None, chunk=4):
         """The tensor-core kernel's rounding contract on (B, S, H, D)
@@ -385,6 +404,13 @@ def kernel_cases(dtype):
         bkv = flash.wgmma_block_kv(q.shape[-1])
         return _chunked(lambda lo, hi: flash.plain_attention_tiled(
             q[lo:hi], k[lo:hi], v[lo:hi], bkv, rows(drop, lo, hi), split), q.shape[0], chunk)
+
+    def tf32_ref(q, k, v, drop=None, split=None, n_rows=256):
+        """The 3xTF32 form's arithmetic on (B, S, H, D) operands, on the
+        first batch row's first ``n_rows`` queries (the kernel's rows
+        there are compared with it)."""
+        return lambda: flash.plain_attention_tf32x3(
+            q[:1, :n_rows], k[:1], v[:1], rows(drop, 0, 1), split)
 
     # K1: cond CFG half at 64x64: 16 frame rows over self + one bank row
     b, s, c, h, rep = 16, 4096, 320, 8, 16
@@ -402,7 +428,7 @@ def kernel_cases(dtype):
              h, hi - lo), b, 4),
          lambda qh=qh, kc=kc, vc=vc: _sdpa(qh, kc, vc),
          4.0 * b * h * s * 2 * s * (c // h), _nbytes(q, k, v, kb, vb, q),
-         tiled=tiled_ref(qh, kc, vc))
+         tiled=tiled_ref(qh, kc, vc), d=c // h, contract=tf32_ref(qh, kc, vc))
 
     # K2: uncond half at 64x64 (d=40) and the c=640 concat call (d=80)
     for b, sq, skv, c in ((16, 4096, 4096, 320), (16, 1024, 2048, 640)):
@@ -414,7 +440,8 @@ def kernel_cases(dtype):
              _chunked(lambda lo, hi, q=q, k=k, v=v: flash.plain_tok_flash(
                  q[lo:hi], k[lo:hi], v[lo:hi], h), b, 4),
              lambda heads=heads: _sdpa(*heads),
-             4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q), tiled=tiled_ref(*heads))
+             4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q), tiled=tiled_ref(*heads),
+             d=d, contract=tf32_ref(*heads))
 
     # K7, K8, K2u (the token-kernel A/B's fixed-shift variants): the uncond
     # half at 64x64 (d=40) and the res/2 self + bank shape (d=80); K8's bytes
@@ -434,7 +461,7 @@ def kernel_cases(dtype):
                      q[lo:hi], k[lo:hi], v[lo:hi], h)[0], b, 4),
                  lambda heads=heads: _sdpa(*heads),
                  4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q) + extra, guarded=fn,
-                 tiled=tiled_ref(*heads))
+                 tiled=tiled_ref(*heads), d=d, contract=tf32_ref(*heads))
 
     # K9: the head-folded pack of the 512x512 request's top-level motion
     # module (2 CFG rows x 4096 positions x 8 heads = 65536 sequences of 16
@@ -508,7 +535,21 @@ def kernel_cases(dtype):
                           None if drop is None else drop[lo:hi], split), b, 4),
              lambda q=q, k=k, v=v, drop=drop, split=split: _sdpa(q, k, v, drop, split),
              _flash_flops(b, hh, s, skv, d, drop, split), _nbytes(q, k, v, q),
-             tiled=tiled_ref(q, k, v, drop, split))
+             tiled=tiled_ref(q, k, v, drop, split), d=d,
+             contract=tf32_ref(q, k, v, drop, split))
+
+    # K4 in float32 above d = 128, the FMA form's range (no path of the port
+    # takes it there; bf16 at d = 160 is the wgmma form's): the UNet's
+    # 1280-channel width, 8 heads of 160, 1024 queries over 2048 keys
+    if dtype == torch.float32:
+        b, s, hh, d = 2, 1024, 8, 160
+        q, k, v = rand(b, s, hh, d), rand(b, 2 * s, hh, d), rand(b, 2 * s, hh, d)
+        case("K4", f"B={b} S={s} Skv={2 * s} H={hh} d={d}",
+             lambda q=q, k=k, v=v: K.flash_attention(q, k, v),
+             _chunked(lambda lo, hi, q=q, k=k, v=v: flash.plain_attention_bshd(
+                 q[lo:hi], k[lo:hi], v[lo:hi]), b, 1),
+             lambda q=q, k=k, v=v: _sdpa(q, k, v),
+             _flash_flops(b, hh, s, 2 * s, d, None, None), _nbytes(q, k, v, q), d=d)
 
     # K5a / K5b: stage-1 training at 512 px, train_bs 2.  The denoising
     # UNet's self + bank attention (masked: CFG-dropped rows skip the bank)
@@ -537,7 +578,8 @@ def kernel_cases(dtype):
                  K.flash_attention_fwd_lse(q, k, v, drop, split),
              plain_fwd,
              lambda q=q, k=k, v=v, drop=drop, split=split: _sdpa(q, k, v, drop, split),
-             fwd_flops, _nbytes(q, k, v, q, lse), tiled=tiled_ref(q, k, v, drop, split, 1))
+             fwd_flops, _nbytes(q, k, v, q, lse), tiled=tiled_ref(q, k, v, drop, split, 1),
+             d=d, contract=tf32_ref(q, k, v, drop, split))
         case("K5b", label,
              lambda q=q, k=k, v=v, out=out, lse=lse, do=do, drop=drop, split=split:
                  K.flash_attention_bwd(q, k, v, out, lse, do, drop, split),
@@ -569,7 +611,8 @@ def kernel_cases(dtype):
                  K.flash_attention_fwd_lse(q, k, v, drop, split),
              plain_fwd,
              lambda q=q, k=k, v=v, drop=drop, split=split: _sdpa(q, k, v, drop, split),
-             fwd_flops, _nbytes(q, k, v, q, lse), tiled=tiled_ref(q, k, v, drop, split, 1))
+             fwd_flops, _nbytes(q, k, v, q, lse), tiled=tiled_ref(q, k, v, drop, split, 1),
+             d=d, contract=tf32_ref(q, k, v, drop, split))
         case("K5b.stage2", label,
              lambda q=q, k=k, v=v, out=out, lse=lse, do=do, drop=drop, split=split:
                  K.flash_attention_bwd(q, k, v, out, lse, do, drop, split),
@@ -612,23 +655,34 @@ def _sm90_report(log_text: str) -> list:
     csrc/flash_bwd_sm90.cu), the temporal kernel
     (``temporal_kernel_mma<FT>``) and the short-sequence kernels
     (``ctg_kernel_mma<FT>``, K6, and ``ssa_kernel_mma<FT>``, K9), these three
-    sized per call up to ~72 KB (K9 up to ~200 KB for one tile at dp = 256).
-    Returns ``(kernel, line)`` pairs."""
-    from aniportrait_tpu_torch.ops.kernels.flash import wgmma_block_kv
+    sized per call up to ~72 KB (K9 up to ~200 KB for one tile at dp = 256);
+    and the float32 flash forward in 3xTF32
+    (``flash_fwd_tf32x3_kernel<DP, MODE, LSE>``), whose shared memory and
+    blocks an SM its own source reports (``flash.tf32x3_shape``: the
+    occupancy API, registers included).  Returns ``(kernel, line)`` pairs."""
+    from aniportrait_tpu_torch.ops.kernels.flash import tf32x3_shape, wgmma_block_kv
+
+    def tf32x3(dp, mode, lse):
+        shape = tf32x3_shape(dp, mode, bool(lse))
+        warps = shape["threads"] // 32
+        return (f"DP={dp} mode={mode}{' LSE' if lse else ''}", shape["smem_bytes"],
+                f" -> {shape['blocks_per_sm']} blocks ({warps * shape['blocks_per_sm']} "
+                f"warps) an SM")
 
     patterns = (
         ("forward", r"flash_fwd_sm90_kernelILi(\d+)ELi(\d+)E",
          lambda dp, mode: (f"DP={dp} mode={mode}",
-                           128 + 128 * dp * 2 + 4 * wgmma_block_kv(dp) * dp * 2)),
+                           128 + 128 * dp * 2 + 4 * wgmma_block_kv(dp) * dp * 2, "")),
         ("backward", r"flash_bwd_sm90_kernelILi(\d+)E",
          lambda dp: (f"DP={dp}", 128 + 2 * 64 * dp * 2 + 4 * 64 * dp * 2 + 64 * 64 * 2
-                     + 4 * 64 * 4 + 64 * dp * 4)),
+                     + 4 * 64 * 4 + 64 * dp * 4, "")),
         ("temporal", r"temporal_kernel_mmaILi(\d+)E",
-         lambda ft: (f"FT={ft} (f <= {16 * ft})", None)),
+         lambda ft: (f"FT={ft} (f <= {16 * ft})", None, "")),
         ("K6", r"ctg_kernel_mmaILi(\d+)E",
-         lambda ft: (f"FT={ft} (seq <= {16 * ft})", None)),
+         lambda ft: (f"FT={ft} (seq <= {16 * ft})", None, "")),
         ("K9", r"ssa_kernel_mmaILi(\d+)E",
-         lambda ft: (f"FT={ft} (groups <= {16 * ft} rows)", None)),
+         lambda ft: (f"FT={ft} (groups <= {16 * ft} rows)", None, "")),
+        ("tf32x3", r"flash_fwd_tf32x3_kernelILi(\d+)ELi(\d+)ELb(\d)E", tf32x3),
     )
     out, current = [], None
     for line in log_text.splitlines():
@@ -639,10 +693,12 @@ def _sm90_report(log_text: str) -> list:
                 if m:
                     current = (kind, *describe(*map(int, m.groups())))
         elif current and ("registers" in line or "spill" in line):
-            kind, label, smem = current
+            kind, label, smem, occupancy = current
             mem = f"{smem} B" if smem is not None else "per call"
+            if "registers" not in line:
+                occupancy = ""
             out.append((kind, f"{kind} {label} ({mem} dynamic shared memory): "
-                              f"{line.split(':', 1)[-1].strip()}"))
+                              f"{line.split(':', 1)[-1].strip()}{occupancy}"))
     return out
 
 
@@ -664,7 +720,7 @@ def kernel_phase(results: dict) -> None:
     failed = []
     for kind, line in _sm90_report(log_text):
         log(f"[ptxas sm90] {line}")
-        if (kind in ("backward", "temporal", "K6", "K9") and "spill" in line
+        if (kind in ("backward", "temporal", "K6", "K9", "tf32x3") and "spill" in line
                 and " 0 bytes spill stores" not in line):
             failed.append(f"ptxas: {line}")
     for dtype in (torch.bfloat16, torch.float32):
@@ -685,28 +741,57 @@ def _kernel_row(c: dict, dtype, failed: list) -> dict:
     returns the line's numbers."""
     import torch
 
+    from aniportrait_tpu_torch.ops.kernels import flash
+
     name = str(dtype).split(".")[-1]
     kid, label = c["kid"], c["label"]
     counters = tensor_core_counts()
     got = c["run"]()
     torch.cuda.synchronize()
-    form, ok_form = "", True
-    if kid in TENSOR_CORE:
+    after = tensor_core_counts()
+    form, ok_form, peak = "", True, name
+    if kid in TENSOR_CORE and TENSOR_CORE[kid] == "forward":
+        # the flash forward: the form its dtype and head dim choose, by the
+        # counter that moved (wgmma, tf32x3, or neither: FMA)
+        want = flash.forward_form(dtype, c["d"])
+        moved = [f for f, key in (("wgmma", "forward"), ("tf32x3", "tf32x3"))
+                 if after[key] > counters[key]]
+        ran = moved[0] if len(moved) == 1 else "fma" if not moved else "both"
+        ok_form = ran == want
+        form = {"wgmma": " [wgmma bf16]", "tf32x3": " [mma.sync tf32x3 float32]",
+                "fma": f" [FMA {name}]"}.get(ran, f" [{moved} FORM?]")
+        peak = "tf32x3" if want == "tf32x3" else name
+    elif kid in TENSOR_CORE:
         which = TENSOR_CORE[kid]
-        tc = tensor_core_counts()[which] > counters[which]
+        tc = after[which] > counters[which]
         ok_form = tc == (dtype == torch.bfloat16)
-        tc_name = "wgmma" if which in ("forward", "backward") else "mma.sync"
+        tc_name = "wgmma" if which == "backward" else "mma.sync"
         form = f" [{tc_name} bf16]" if tc else f" [FMA {name}]"
     tiled = ""
+    out = got[0] if isinstance(got, tuple) else got
     if c["tiled"] is not None and dtype == torch.bfloat16:
-        out = got[0] if isinstance(got, tuple) else got
         _, t_abs, t_rel, _ = _check(out, c["tiled"]().reshape(out.shape))
         what = "exact softmax" if kid == "K3" else "tiled contract"
         tiled = f" vs {what} max_abs_err={t_abs:.3e} rel_l2={t_rel:.3e}"
+    if c.get("contract") is not None and peak == "tf32x3":
+        want_rows = c["contract"]()
+        _, t_abs, t_rel, _ = _check(out[:1, :want_rows.shape[1]].reshape(want_rows.shape),
+                                    want_rows)
+        tiled = f" vs 3xTF32 arithmetic max_abs_err={t_abs:.3e} rel_l2={t_rel:.3e}"
     ref = c["plain"]()
     ok, max_abs, rel_l2, bound = _check(got, ref)
     ok &= ok_form
-    del got, ref
+    lib_err = ""
+    if dtype == torch.float32 and kid.split(".")[0] in FLASH_FWD + ("K5b",):
+        # the yardstick's own accuracy: the library call against the plain version
+        lib = c["library"]()
+        lib = lib if isinstance(lib, tuple) else (lib,)
+        want = ref if isinstance(ref, tuple) else (ref,)
+        _, l_abs, l_rel, _ = _check(tuple(x.reshape(r.shape) for x, r in zip(lib, want)),
+                                    want[:len(lib)])
+        lib_err = f" library vs plain max_abs_err={l_abs:.3e} rel_l2={l_rel:.3e}"
+        del lib
+    del got, ref, out
     guard = ""
     if c["guarded"] is not None:  # the fast path's output must stand
         held = c["guarded"].last_guard.item() == 0
@@ -715,12 +800,17 @@ def _kernel_row(c: dict, dtype, failed: list) -> dict:
     ms = _time_ms(c["run"], 5)
     plain_ms = _time_ms(c["plain"], 2)
     lib_ms = _time_ms(c["library"], 5)
-    bound_ms, bound_by = _bound(c["flops"], c["nbytes"], name)
+    bound_ms, bound_by = _bound(c["flops"], c["nbytes"], peak)
+    fma_bound = ""
+    if peak == "tf32x3":
+        fma_ms, fma_by = _bound(c["flops"], c["nbytes"], "float32")
+        fma_bound = f"; FMA bound {fma_ms:.4f} ms ({fma_by})"
     log(f"[kernels] {kid}{form} {name} {label}: max_abs_err={max_abs:.3e} "
-        f"rel_l2={rel_l2:.3e} (tol {bound:.3g}/{TOLERANCE[name][1]:g}){tiled} "
+        f"rel_l2={rel_l2:.3e} (tol {bound:.3g}/{TOLERANCE[name][1]:g}){tiled}{lib_err} "
         f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms library {lib_ms:.3f} ms "
-        f"bound {bound_ms:.4f} ms ({bound_by}; {c['flops'] / 1e9:.1f} GFLOP, "
-        f"{c['nbytes'] / 1e6:.1f} MB){guard} {'ok' if ok else 'FAIL'}")
+        f"bound {bound_ms:.4f} ms ({bound_by}{', 3xTF32' if peak == 'tf32x3' else ''}; "
+        f"{c['flops'] / 1e9:.1f} GFLOP, {c['nbytes'] / 1e6:.1f} MB{fma_bound}){guard} "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         failed.append(f"{kid} {name} {label}")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -753,16 +843,17 @@ def _gpu_vs_cpu(cpu_modules, width: int, height: int, frames: int, steps: int,
         sampler = pipe._build_sampler(frames, height // 8, width // 8, steps, 3.5, True)
         lat = sampler(torch.from_numpy(lat0).to(device), ctx, banks, pose_fea)
         out[device] = lat.cpu().numpy()
-        if device == "cuda":
-            counts = K.launch_counts()
+        if device == "cuda":  # with the float32 flash forward's 3xTF32 calls
+            counts = dict(K.launch_counts(), tf32x3=tensor_core_counts()["tf32x3"])
     err = float(np.abs(out["cuda"] - out["cpu"]).max())
     return err, counts, bool(np.isfinite(out["cuda"]).all())
 
 
 def reference_phase() -> None:
     """The micro model, float32, 2 steps, GPU (kernels) vs CPU (plain
-    versions): the exact windowed sampler at 256 px, 8 frames; and a fused,
-    cached, windowed sampler at 112x80 px, 12 frames, where K6 runs."""
+    versions): the exact windowed sampler at 256 px, 8 frames (its flash
+    forward calls on the 3xTF32 form); and a fused, cached, windowed sampler
+    at 112x80 px, 12 frames, where K6 runs."""
     import torch
 
     from aniportrait_tpu_torch import factory
@@ -772,7 +863,7 @@ def reference_phase() -> None:
     cpu_modules = factory.build_models("micro", "cpu", torch.float32, seed=0)
     runs = (
         ("exact windowed 256x256 px, 8 frames", dict(width=256, height=256, frames=8),
-         ("K1", "K2", "K3"), {}),
+         ("K1", "K2", "K3", "tf32x3"), {}),
         ("fused + cached windowed 112x80 px, 12 frames, context 8/2",
          dict(width=112, height=80, frames=12), ("K6",),
          dict(context_frames=8, context_overlap=2, window_fusion=True,
@@ -1392,7 +1483,8 @@ def audio_kernel_cases(dtype):
             plain=lambda q=q, k=k, v=v: flash.plain_attention_bshd(q, k, v),
             library=lambda q=q, k=k, v=v: _sdpa(q, k, v),
             flops=4.0 * 12 * s * s * 64, nbytes=_nbytes(q, k, v, q), guarded=None,
-            tiled=lambda q=q, k=k, v=v: flash.plain_attention_tiled(q, k, v, bkv)))
+            tiled=lambda q=q, k=k, v=v: flash.plain_attention_tiled(q, k, v, bkv), d=64,
+            contract=lambda q=q, k=k, v=v: flash.plain_attention_tf32x3(q, k, v)))
     return cases
 
 
@@ -1479,24 +1571,31 @@ def audio_phase(results: dict) -> None:
     frames = 30 * AUDIO_LONG_SECONDS
     a2m, a2p = card
     audio2vid.mesh_offsets(a2m, long_wav[:16000], 30)  # warm-up below K4's length
-    tc = tensor_core_counts()["forward"]
     K.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     offsets = audio2vid.mesh_offsets(a2m, long_wav, frames)
     dt = time.perf_counter() - t0
-    counts = K.launch_counts()
+    counts, forms = K.launch_counts(), tensor_core_counts()
+    repeats = []  # five more passes, timed alone
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio2vid.mesh_offsets(a2m, long_wav, frames)
+        repeats.append(time.perf_counter() - t0)
     cpu_offsets = audio2vid.mesh_offsets(cpu[0], long_wav, frames)
     err, scale = _rel_err(offsets, cpu_offsets)
     layers = len(a2m.audio_encoder.encoder.layers)
     log(f"[audio] {AUDIO_LONG_SECONDS}-s clip ({frames} frames) through Audio2Mesh on "
-        f"{gpu_line()}: {dt:.3f} s with upload and download; kernel launches {counts} "
-        f"(K4 on the FMA form: tensor-core launches {tensor_core_counts()['forward'] - tc}); "
+        f"{gpu_line()}: {dt:.3f} s with upload and download (then "
+        f"{', '.join(f'{x * 1e3:.2f}' for x in repeats)} ms, median "
+        f"{sorted(repeats)[2] * 1e3:.2f} ms); kernel launches {counts} "
+        f"(K4 on the 3xTF32 form: {forms['tf32x3']}, on wgmma: {forms['forward']}); "
         f"vs CPU max err {err:.3e} of {scale:.3g}")
     if (counts["K4"] != layers or sum(counts.values()) != layers
-            or tensor_core_counts()["forward"] != tc):
-        raise SystemExit(f"audio: the {frames}-frame clip launched {counts}, not K4 once "
-                         f"per each of {layers} layers")
+            or forms["tf32x3"] != layers or forms["forward"] != 0):
+        raise SystemExit(f"audio: the {frames}-frame clip launched {counts} ({forms}), not "
+                         f"K4 on the 3xTF32 form once per each of {layers} layers")
     if not np.isfinite(offsets).all() or err > AUDIO_REL_TOL:
         raise SystemExit("audio: the long clip's offsets are not finite or off the CPU's")
     results.setdefault("K4.audio", {})["launches"] = counts["K4"]
@@ -1847,8 +1946,8 @@ def train_reference_phase() -> None:
                             draws=step_draws, uncond_ratio=settings.uncond_ratio)
         loss[device] = float(out["loss"])
         grads[device] = {k: p.grad.float().cpu() for k, p in trainable.items()}
-        if device == "cuda":
-            counts = K.launch_counts()
+        if device == "cuda":  # with the float32 flash forward's 3xTF32 calls
+            counts = dict(K.launch_counts(), tf32x3=tensor_core_counts()["tf32x3"])
     scale = max(g.abs().max().item() for g in grads["cpu"].values())
     err = max((grads["cuda"][k] - g).abs().max().item() for k, g in grads["cpu"].items())
     loss_err = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
@@ -1861,7 +1960,7 @@ def train_reference_phase() -> None:
         raise SystemExit("train reference phase: GPU loss disagrees with CPU")
     if not err <= TRAIN_GRAD_TOL * scale:
         raise SystemExit("train reference phase: GPU gradients disagree with CPU")
-    missing = [k for k in ("K2", "K5a", "K5b") if counts[k] == 0]
+    missing = [k for k in ("K2", "K5a", "K5b", "tf32x3") if counts[k] == 0]
     if missing:
         raise SystemExit(f"train reference phase: kernels {missing} never launched")
 
@@ -1876,7 +1975,9 @@ def _profile_families(prof, wall_s: float):
 
     families = (("flash backward (K5b; bf16: tensor cores)", ("flash_bwd",)),
                 ("flash forward, tensor cores (bf16 K1, K2, K4, K5a)", ("flash_fwd_sm90",)),
-                ("flash forward, FMA (float32)", ("flash_fwd",)),
+                ("flash forward, 3xTF32 tensor cores (float32, d <= 128)",
+                 ("flash_fwd_tf32x3",)),
+                ("flash forward, FMA (float32, d > 128)", ("flash_fwd",)),
                 ("temporal (K3; bf16: tensor cores)", ("temporal_kernel",)),
                 ("short sequences (K6, K9)", ("ctg_kernel", "ssa_kernel")),
                 ("GEMM", ("gemm", "cutlass", "xmma", "cublas", "matmul")),
@@ -1914,7 +2015,8 @@ def _profile_families(prof, wall_s: float):
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0.0)
         name = evt.key.lower()
-        if us and is_device(evt) and ("_sm90_kernel" in name or "kernel_mma" in name):
+        if us and is_device(evt) and ("_sm90_kernel" in name or "kernel_mma" in name
+                                      or "tf32x3_kernel" in name):
             # the tensor-core kernels by instantiation: calls and device time
             m = re.search(r"(\w+_kernel\w*<[^>]*>)", evt.key)
             log(f"[profile] {m.group(1) if m else evt.key[:100]}: {evt.count} calls, "

@@ -7,14 +7,18 @@ machine without it (tests/conftest.py needs JAX; skip it there):
 
 Shapes are small and odd (sequence lengths that are not multiples of the
 tiles, head dims that need padding), in float32 (kernel error only) and
-bf16.  The flash forward runs in two forms, chosen by dtype: bf16 on the
-tensor cores (``csrc/flash_attn_sm90.cu``; head dims 20 and 24 take its
-scalar loader, the others TMA), float32 on the FMA units.  So do the flash
-backward (bf16 up to d = 128: ``csrc/flash_bwd_sm90.cu``), the temporal
-kernel (bf16: ``csrc/temporal_attn_sm90.cu``, held to the Pallas rounding
-contract of ``temporal.plain_nat_temporal_rounded``) and the short-sequence
-kernels K6 and K9 (bf16 with d % 8 == 0: ``csrc/small_seq_attn_sm90.cu``,
-held to their plain versions at the smoke's bf16 tolerance).
+bf16.  The flash forward runs in three forms, chosen by dtype and head dim:
+bf16 on the tensor cores (``csrc/flash_attn_sm90.cu``; head dims 20 and 24
+take its scalar loader, the others TMA), float32 up to d = 128 on the
+tensor cores in 3xTF32 (``csrc/flash_attn_tf32x3_sm90.cu``, also held to
+its arithmetic ``flash.plain_attention_tf32x3``), float32 above 128 on the
+FMA units.  Two forms each, bf16 on the tensor cores and float32 on the FMA
+units, have the flash backward (bf16 up to d = 128:
+``csrc/flash_bwd_sm90.cu``), the temporal kernel (bf16:
+``csrc/temporal_attn_sm90.cu``, held to the Pallas rounding contract of
+``temporal.plain_nat_temporal_rounded``) and the short-sequence kernels K6
+and K9 (bf16 with d % 8 == 0: ``csrc/small_seq_attn_sm90.cu``, held to
+their plain versions at the smoke's bf16 tolerance).
 """
 
 import copy
@@ -53,7 +57,7 @@ def test_flash_entries_match_plain(rand, dtype, d, sq, skv):
     tiles.  bf16 runs the tensor-core form and also meets the tiled
     rounding contract's version."""
     h = 2
-    before = flash.tensor_core_launches
+    before, before_tf32 = flash.tensor_core_launches, flash.tf32x3_launches
     q, k, v = rand(dtype, 3, sq, h * d), rand(dtype, 3, skv, h * d), rand(dtype, 3, skv, h * d)
     torch.testing.assert_close(K.tok_flash(q, k, v, h), flash.plain_tok_flash(q, k, v, h),
                                **TOL[dtype])
@@ -69,26 +73,33 @@ def test_flash_entries_match_plain(rand, dtype, d, sq, skv):
     got = K.flash_attention(q4, k4, v4, drop, split)
     torch.testing.assert_close(got, flash.plain_attention_bshd(q4, k4, v4, drop, split),
                                **TOL[dtype])
-    wgmma = flash.forward_form(dtype, d) == "wgmma"
-    assert flash.tensor_core_launches == before + 3 * wgmma
-    if wgmma:
+    form = flash.forward_form(dtype, d)
+    assert flash.tensor_core_launches == before + 3 * (form == "wgmma")
+    assert flash.tf32x3_launches == before_tf32 + 3 * (form == "tf32x3")
+    if form == "wgmma":
         torch.testing.assert_close(
             got, flash.plain_attention_tiled(q4, k4, v4, flash.wgmma_block_kv(d), drop, split),
             **TOL[dtype])
+    if form == "tf32x3":
+        torch.testing.assert_close(
+            got, flash.plain_attention_tf32x3(q4, k4, v4, drop, split), **TOL[dtype])
 
 
 @pytest.mark.cuda
 def test_forward_form_follows_the_dtype(rand):
-    """bf16 takes the tensor-core kernel and moves its counter; float32 the
-    FMA kernel, which does not."""
+    """bf16 takes the tensor-core kernel and moves its counter; float32 up to
+    d = 128 the 3xTF32 tensor-core kernel, which moves its own, and above
+    128 the FMA kernel, which moves neither."""
     for d in FLASH_DIMS:
         assert flash.forward_form(torch.bfloat16, d) == "wgmma"
-        assert flash.forward_form(torch.float32, d) == "fma"
-    for dtype, moved in ((torch.bfloat16, 1), (torch.float32, 0)):
-        q = rand(dtype, 2, 40, 80)
-        before = flash.tensor_core_launches
+        assert flash.forward_form(torch.float32, d) == ("tf32x3" if d <= 128 else "fma")
+    for dtype, d, moved in ((torch.bfloat16, 40, (1, 0)), (torch.float32, 40, (0, 1)),
+                            (torch.float32, 160, (0, 0))):
+        q = rand(dtype, 2, 40, 2 * d)
+        before = (flash.tensor_core_launches, flash.tf32x3_launches)
         K.tok_flash(q, q, q, 2)
-        assert flash.tensor_core_launches == before + moved
+        assert (flash.tensor_core_launches - before[0],
+                flash.tf32x3_launches - before[1]) == moved
 
 
 @pytest.mark.cuda
@@ -494,19 +505,188 @@ def test_wrappers_reject_what_the_kernels_do_not_take(rand):
 def test_flash_at_wav2vec2_shapes(rand, dtype, s):
     """K4 at wav2vec2-base's self-attention (B=1, 12 heads, d=64): 1024
     frames, the first that take K4, and 1800 (60 s of audio; a ragged last
-    tile), through the model's dispatch; float32 runs the FMA form, bf16 the
-    tensor cores and also meets the tiled rounding contract."""
+    tile), through the model's dispatch; float32 runs the 3xTF32 tensor-core
+    form and also meets its arithmetic, bf16 the wgmma form and also meets
+    the tiled rounding contract."""
     from aniportrait_tpu_torch.ops.attention import scaled_dot_product_attention
 
     q, k, v = (rand(dtype, 1, s, 12, 64) for _ in range(3))
     before, tc = K.launch_counts()["K4"], flash.tensor_core_launches
+    tf32 = flash.tf32x3_launches
     got = scaled_dot_product_attention(q, k, v)
     assert K.launch_counts()["K4"] == before + 1
-    assert (flash.tensor_core_launches > tc) == (dtype == torch.bfloat16)
+    assert flash.tensor_core_launches - tc == (dtype == torch.bfloat16)
+    assert flash.tf32x3_launches - tf32 == (dtype == torch.float32)
     torch.testing.assert_close(got, flash.plain_attention_bshd(q, k, v), **TOL[dtype])
     if dtype == torch.bfloat16:
         torch.testing.assert_close(
             got, flash.plain_attention_tiled(q, k, v, flash.wgmma_block_kv(64)), **TOL[dtype])
+    else:
+        torch.testing.assert_close(got, flash.plain_attention_tf32x3(q, k, v), **TOL[dtype])
+
+
+def _tf32x3_close(got, ref_exact, ref_contract):
+    """float32 tolerance against both the exact softmax and the kernel's
+    3xTF32 arithmetic."""
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref_exact, **TOL[torch.float32])
+    torch.testing.assert_close(got, ref_contract, **TOL[torch.float32])
+
+
+TF32X3_DIMS = [40, 64, 80, 88, 128]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", TF32X3_DIMS)
+@pytest.mark.parametrize("sq,skv", [(70, 90), (130, 257), (37, 1)])
+def test_tf32x3_running_max_modes(rand, d, sq, skv):
+    """The float32 tensor-core form in its RUNMAX mode: K4 with and without
+    drop_tail / kv_split, K5a's LSE, K2 in token layout and K1's bank
+    segment (50 keys, rep 2), on ragged S (keys and queries that fill no
+    tile); each call moves tf32x3_launches by one."""
+    h = 2
+    q, k, v = (rand(torch.float32, 4, s, h, d) for s in (sq, skv, skv))
+    drop = torch.tensor([True, False, True, False], device="cuda")
+    split = min(45, skv)
+    before = flash.tf32x3_launches
+    for mask in ((None, None), (drop, split)):
+        _tf32x3_close(K.flash_attention(q, k, v, *mask), flash.plain_attention_bshd(q, k, v, *mask),
+                      flash.plain_attention_tf32x3(q, k, v, *mask))
+        out, lse = K.flash_attention_fwd_lse(q, k, v, *mask)
+        ref_out, ref_lse = flash.plain_attention_fwd_lse(q, k, v, *mask)
+        _tf32x3_close(out, ref_out, flash.plain_attention_tf32x3(q, k, v, *mask))
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    tq, tk, tv = (x.reshape(4, x.shape[1], h * d) for x in (q, k, v))
+    torch.testing.assert_close(K.tok_flash(tq, tk, tv, h), flash.plain_tok_flash(tq, tk, tv, h),
+                               **TOL[torch.float32])
+    kb, vb = rand(torch.float32, 2, 50, h * d), rand(torch.float32, 2, 50, h * d)
+    got = K.tok_flash_banked(tq, tk, tv, kb, vb, h, 2)
+    kc = torch.cat([tk, kb.repeat_interleave(2, 0)], 1).view(4, skv + 50, h, d)
+    vc = torch.cat([tv, vb.repeat_interleave(2, 0)], 1).view(4, skv + 50, h, d)
+    _tf32x3_close(got, flash.plain_tok_flash_banked(tq, tk, tv, kb, vb, h, 2),
+                  flash.plain_attention_tf32x3(q, kc, vc).reshape(got.shape))
+    assert flash.tf32x3_launches == before + 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", TF32X3_DIMS)
+@pytest.mark.parametrize("variant", sorted(TOK_VARIANTS))
+def test_tf32x3_fixed_shift_modes(rand, d, variant):
+    """K7, K8 and K2u in float32 on the 3xTF32 form: 70 queries over 90
+    keys, the guard holds, the output meets the plain version's, the
+    running max's and the kernel's arithmetic; one count a call."""
+    fn, plain = TOK_VARIANTS[variant]
+    h = 2
+    q, k, v = rand(torch.float32, 3, 70, h * d), rand(torch.float32, 3, 90, h * d), \
+        rand(torch.float32, 3, 90, h * d)
+    before = flash.tf32x3_launches
+    got = fn(q, k, v, h)
+    assert flash.tf32x3_launches == before + 1
+    assert fn.last_guard.item() == 0
+    ref, flag = plain(q, k, v, h)
+    assert flag.item() == 0
+    heads = [x.view(3, x.shape[1], h, d) for x in (q, k, v)]
+    _tf32x3_close(got, ref, flash.plain_attention_tf32x3(*heads).reshape(got.shape))
+    torch.testing.assert_close(got, flash.plain_tok_flash(q, k, v, h), **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,kind,tripped", [
+    ("noshift", "orthogonal", False), ("noshift", "overflow", True),
+    ("bounded", "orthogonal", True), ("unshifted", "overflow", True),
+])
+def test_tf32x3_guards_take_the_jax_branch(rand, variant, kind, tripped):
+    """The crafted inputs at d = 8 in float32: the 3xTF32 form's guard trips
+    where JAX's does, and the predicated running-max launch (the same form)
+    then replaces the output."""
+    fn, plain = TOK_VARIANTS[variant]
+    q, k, v = _crafted(kind)
+    before = flash.tf32x3_launches
+    got = fn(q, k, v, 1)
+    assert flash.tf32x3_launches == before + 1
+    assert fn.last_guard.item() == int(tripped)
+    torch.testing.assert_close(got, plain(q, k, v, 1)[0], atol=1e-4, rtol=1e-4)
+    if tripped:
+        torch.testing.assert_close(got, K.tok_flash(q, k, v, 1), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,offset", [(18, 0), (36, 1), (64, 1), (5, 0), (52, 0)])
+def test_tf32x3_scalar_loads(rand, d, offset):
+    """Head dims that are no multiple of 4, and operands 4 bytes off a
+    16-byte boundary, take the kernel's 4-byte copies (d = 52 takes the
+    16-byte copies into the 64-column tile that d = 49 ... 56 use)."""
+    b, s, h = 2, 75, 3
+    n = b * s * h * d
+    q, k, v = (rand(torch.float32, n + offset)[offset:].view(b, s, h, d) for _ in range(3))
+    before = flash.tf32x3_launches
+    got = K.flash_attention(q, k, v)
+    assert flash.tf32x3_launches == before + 1
+    _tf32x3_close(got, flash.plain_attention_bshd(q, k, v), flash.plain_attention_tf32x3(q, k, v))
+
+
+def _with_nans(q, k, v, card_nan):
+    """q, k, v (B >= 2, S >= 10, H >= 3, D >= 4) with NaNs the 3xTF32 split
+    must keep: ``card_nan`` (made on the card) in key 5 of row 0, head 0;
+    the negative NaN 0xffffffff at one V element (row 1, key 7, head 1,
+    column 3); the NaN 0x7f800001, whose payload lies in the bits a tf32
+    operand drops, in query 9 of row 0, head 2."""
+    q, k, v = q.clone(), k.clone(), v.clone()
+    k[0, 5, 0] = card_nan
+    v.view(torch.int32)[1, 7, 1, 3] = -1
+    q.view(torch.int32)[0, 9, 2] = 0x7F800001
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 64, 88])
+def test_tf32x3_keeps_nans(rand, d):
+    """A NaN in q, K or V gives NaN wherever the exact softmax gives one,
+    and only there: the split's rounding add carries the card's own NaN
+    (0/0, bit pattern 0x7fffffff) into big's sign bit (-0 as a tf32
+    operand), so the unrounded small part must carry it; the other entries
+    still meet the plain version."""
+    card_nan = torch.zeros((), device="cuda") / torch.zeros((), device="cuda")
+    q, k, v = _with_nans(*(rand(torch.float32, 2, 40, 3, d) for _ in range(3)), card_nan)
+    got = K.flash_attention(q, k, v)
+    ref = flash.plain_attention_bshd(q, k, v)
+    nan = torch.isnan(ref)
+    assert nan[0, :, 0].all() and nan[1, :, 1, 3].all() and nan[0, 9, 2].all()
+    assert torch.equal(torch.isnan(got), nan)
+    torch.testing.assert_close(got[~nan], ref[~nan], **TOL[torch.float32])
+    assert torch.equal(torch.isnan(flash.plain_attention_tf32x3(q, k, v)), nan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(TOK_VARIANTS))
+def test_tf32x3_nan_trips_the_guards(rand, variant):
+    """K7, K8 and K2u in float32: a NaN from the card in one key trips the
+    guard, as the JAX guard falls back on a non-finite sum, and the
+    running-max result then carries the NaN as the plain version does."""
+    fn, plain = TOK_VARIANTS[variant]
+    h, d = 3, 40
+    card_nan = torch.zeros((), device="cuda") / torch.zeros((), device="cuda")
+    q, k, v = _with_nans(*(rand(torch.float32, 2, 40, h, d) for _ in range(3)), card_nan)
+    q, k, v = (x.reshape(2, 40, h * d) for x in (q, k, v))
+    got = fn(q, k, v, h)
+    assert fn.last_guard.item() == 1
+    ref, flag = plain(q, k, v, h)
+    assert flag.item() == 1
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+
+
+@pytest.mark.cuda
+def test_tf32x3_block_matches_the_source(rand):  # rand: skips without a card
+    """``flash.tf32x3_block_kv``, the tile of the plain version, is the one
+    the kernel launches at every head dim it takes; each instantiation fits
+    at least one block an SM."""
+    for d in range(1, flash.TF32X3_MAX_HEAD_DIM + 1):
+        shape = flash.tf32x3_shape(d)
+        assert shape["block_kv"] == flash.tf32x3_block_kv(d), d
+        assert shape["dp"] >= d and shape["blocks_per_sm"] >= 1, (d, shape)
+    for mode in (flash.NOSHIFT_E, flash.BOUNDED_2, flash.UNSHIFTED_2):
+        assert flash.tf32x3_shape(64, mode)["blocks_per_sm"] >= 1
+    assert flash.tf32x3_shape(64, lse=True)["blocks_per_sm"] >= 1
 
 
 @pytest.mark.cuda

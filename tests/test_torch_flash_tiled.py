@@ -55,11 +55,14 @@ def test_tiled_contract_matches_pallas_and_exact(d, drop):
 
 
 def test_forward_form_is_a_function_of_dtype_and_head_dim():
-    """bf16 takes the tensor-core form, float32 the FMA form, at every head
-    dim the kernels take; anything else raises (no form to fall back to)."""
+    """bf16 takes the tensor-core form at every head dim the kernels take,
+    float32 the 3xTF32 tensor-core form up to d = 128 and the FMA form
+    above; anything else raises (no form to fall back to)."""
     for d in (1, 20, 40, 88, 160, 256):
         assert flash.forward_form(torch.bfloat16, d) == "wgmma"
-        assert flash.forward_form(torch.float32, d) == "fma"
+        assert flash.forward_form(torch.float32, d) == ("tf32x3" if d <= 128 else "fma")
+    assert flash.forward_form(torch.float32, 128) == "tf32x3"
+    assert flash.forward_form(torch.float32, 129) == "fma"
     with pytest.raises(TypeError):
         flash.forward_form(torch.float16, 40)
     with pytest.raises(ValueError):
