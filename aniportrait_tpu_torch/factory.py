@@ -17,6 +17,7 @@ from aniportrait_tpu_torch.models.pose_guider import PoseGuider
 from aniportrait_tpu_torch.models.unet import AniUNet
 from aniportrait_tpu_torch.models.vae import AutoencoderKL
 from aniportrait_tpu_torch.schedulers import DDIMScheduler
+from aniportrait_tpu_torch.utils.profiling import span
 
 # Same sizes as aniportrait_tpu/factory.py:24-56 (full = SD-1.5 UNet,
 # sd-vae-ft-mse, CLIP ViT-L/14, PoseGuider at 320 channels).
@@ -178,18 +179,21 @@ def build_models(size: str = "full", device="cuda", dtype=torch.float32, seed: i
     """The five models at ``size`` on ``device`` in ``dtype``, eval mode, no
     gradients, weights drawn on the device from ``seed`` by ``init``
     (:func:`init_weights`, or :func:`init_flax_defaults` for the quality
-    gate)."""
+    gate).  Traced as the span ``build_models``, each model's draw a child
+    span ``init``."""
     device = torch.device(device)
-    with torch.device("meta"):
-        models = make_models(size, use_motion_module, unet_overrides)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    for model in models.values():
-        model.to_empty(device=device)
-        init(model, gen)
-        cast(model, dtype).eval().requires_grad_(False)
-    return PipelineModules(
-        scheduler=DDIMScheduler(**(scheduler_kwargs or INFERENCE_SCHEDULER)), **models
-    )
+    with span("build_models", size=size):
+        with torch.device("meta"):
+            models = make_models(size, use_motion_module, unet_overrides)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        for name, model in models.items():
+            model.to_empty(device=device)
+            with span("init", model=name):
+                init(model, gen)
+            cast(model, dtype).eval().requires_grad_(False)
+        return PipelineModules(
+            scheduler=DDIMScheduler(**(scheduler_kwargs or INFERENCE_SCHEDULER)), **models
+        )
 
 
 # ``configs/inference/inference_v2.yaml``'s ``unet_additional_kwargs`` as
@@ -221,9 +225,19 @@ def build_training_models(size: str = "full", device="cuda", seed: int = 0,
       the ReferenceNet, the rest of the denoising UNet, the PoseGuider, VAE
       and CLIP are frozen.
 
-    ``gradient_checkpointing`` is set on both UNets."""
+    ``gradient_checkpointing`` is set on both UNets.  Traced as the span
+    ``build_training_models``, with ``build_models`` and its ``init`` spans
+    inside."""
     if stage not in (1, 2):
         raise ValueError(f"stage={stage}")
+    with span("build_training_models", size=size, stage=stage):
+        return _training_models(size, device, seed, frozen_dtype, scheduler_kwargs, stage,
+                                gradient_checkpointing, unet_overrides)
+
+
+def _training_models(size, device, seed, frozen_dtype, scheduler_kwargs, stage,
+                     gradient_checkpointing, unet_overrides) -> PipelineModules:
+    """The body of :func:`build_training_models`."""
     overrides = unet_overrides if unet_overrides is not None else (
         INFERENCE_V2_UNET if stage == 2 else None)
     modules = build_models(size, device, torch.float32, seed,

@@ -13,7 +13,8 @@ custom VJP of ``aniportrait_tpu/ops/pallas_attention.py``.
 * :class:`NatTemporal` (``nat_packed``, :2134-2156): K3 forward; the
   backward is autograd of the plain version, as the JAX backward is the XLA
   core and not a Pallas kernel.  It runs inside the profiler range
-  :data:`K3_BACKWARD`, so a profile can tell its device time apart.
+  :data:`K3_BACKWARD`, so a profile can tell its device time apart, and in
+  a tracer span of the same name (on a GPU, on autograd's thread).
 * :class:`CtgPacked` (``ctg_packed``, :2194-2215): K6 forward; the backward
   is autograd of the plain version, as ``_ctg_bwd`` is the XLA core's VJP.
 * :class:`SsaPacked` (``ssa_packed``, :2252-2271): K9 forward; the backward
@@ -28,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from aniportrait_tpu_torch.ops.kernels import flash, small_seq, temporal
+from aniportrait_tpu_torch.utils.profiling import span
 
 K3_BACKWARD = "K3 plain backward"
 
@@ -125,7 +127,7 @@ class NatTemporal(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.profiler.record_function(K3_BACKWARD):
+        with torch.profiler.record_function(K3_BACKWARD), span(K3_BACKWARD):
             inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
             with torch.enable_grad():
                 out = temporal.plain_nat_temporal(*inputs, *ctx.args)

@@ -25,6 +25,16 @@ the windows, or the CFG halves and frame blocks, and the VAE decode.
 
 Inputs are uint8 ``(H, W, 3)`` images; the output is ``(L, H, W, 3)``.
 Initial noise comes from ``torch.Generator(device).manual_seed(seed)``.
+
+Tracing (``utils/profiling.py``): the pipeline's ``PhaseTimer`` keeps the
+phases ``host_inputs`` (host resize, pinning, the uploads' issue),
+``encode_reference``, ``pose_features``, ``denoise`` and ``vae_decode``
+(``host_outputs`` inside it: the last copies' waits and the host's frames);
+while the tracer is on they are spans of the root span ``request``, with
+``step`` (per DDIM step; on the windowed path ``window_batch``, ``scatter``)
+and ``scheduler_step`` inside ``denoise``, and a span per model call:
+``clip``, ``vae_encode``, ``reference_unet``, ``pose_guider``,
+``denoising_unet``, ``vae_decode_chunk``.
 """
 
 from __future__ import annotations
@@ -50,7 +60,7 @@ from aniportrait_tpu_torch.pipelines.context import (
 )
 from aniportrait_tpu_torch.pipelines.interpolation import interpolate_latents
 from aniportrait_tpu_torch.utils.image import resize
-from aniportrait_tpu_torch.utils.profiling import PhaseTimer
+from aniportrait_tpu_torch.utils.profiling import PhaseTimer, span
 
 VAE_SCALE = 0.18215
 
@@ -113,7 +123,10 @@ class Pose2VideoPipeline:
         self._streams = {}
 
     def _sync(self):
-        """Wait for the current stream (not the side streams' copies)."""
+        """Wait for the current stream (not the side streams' copies).  Each
+        phase of :meth:`__call__` ends in it, so that the ``PhaseTimer``
+        totals cover the device work: the benchmark's
+        ``pipeline.denoise_s.gen`` reads the ``denoise`` total."""
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
@@ -193,19 +206,23 @@ class Pose2VideoPipeline:
         mean = torch.tensor(CLIP_MEAN, device=self.device)[:, None, None]
         std = torch.tensor(CLIP_STD, device=self.device)[:, None, None]
         clip = ((clip_u8.permute(0, 3, 1, 2).float() / 255.0 - mean) / std)
-        ctx = m.clip(clip.to(self.dtype))[:, None, :]
+        with span("clip"):
+            ctx = m.clip(clip.to(self.dtype))[:, None, :]
         ctx_cfg = torch.cat([torch.zeros_like(ctx), ctx], dim=0)
-        ref_latents = m.vae.encode(ref)[0] * VAE_SCALE  # (1, 4, h, w)
+        with span("vae_encode"):
+            ref_latents = m.vae.encode(ref)[0] * VAE_SCALE  # (1, 4, h, w)
         ref_in = torch.cat([ref_latents] * 2, dim=0)[:, None]
         t0 = torch.zeros(2, dtype=torch.long, device=self.device)
-        _, banks = m.reference_unet(ref_in, t0, ctx_cfg, capture_banks=True)
+        with span("reference_unet"):
+            _, banks = m.reference_unet(ref_in, t0, ctx_cfg, capture_banks=True)
         return ctx_cfg, ref_latents.permute(0, 2, 3, 1), banks
 
     @torch.no_grad()
     def _pose_features(self, pose_u8):
         """pose_u8 (1, L, H, W, 3) uint8 -> list of (1, L, c_k, h_k, w_k)."""
         pose = pose_u8.permute(0, 1, 4, 2, 3).to(self.dtype) / 127.5 - 1.0
-        return self.m.pose_guider(pose)
+        with span("pose_guider"):
+            return self.m.pose_guider(pose)
 
     def _build_sampler(self, video_length: int, hlat: int, wlat: int, steps: int,
                        guidance_scale: float, windowed: bool):
@@ -299,12 +316,13 @@ class Pose2VideoPipeline:
 
         def unet(lat, t, ctx_t, banks_t, pose_w, mode="full", enc=None):
             b = lat.shape[0]
-            out, _ = m.denoising_unet(
-                lat.to(self.dtype), torch.full((b,), t, dtype=torch.long, device=dev),
-                ctx_t, pose_cond_fea=pose_w, ref_banks=banks_t, drop_mode=drop_mode,
-                mode=mode, motion_windows=motion_windows, enc_features=enc,
-                frame_shard=shard,
-            )
+            with span("denoising_unet", rows=b, mode=mode):
+                out, _ = m.denoising_unet(
+                    lat.to(self.dtype), torch.full((b,), t, dtype=torch.long, device=dev),
+                    ctx_t, pose_cond_fea=pose_w, ref_banks=banks_t, drop_mode=drop_mode,
+                    mode=mode, motion_windows=motion_windows, enc_features=enc,
+                    frame_shard=shard,
+                )
             return out
 
         def predict(lat, t, step_i, ctx_t, banks_t, pose_w, cache, slot):
@@ -348,13 +366,15 @@ class Pose2VideoPipeline:
                 ctx_t, banks_t = cond_rows(1)
                 pose_w = [cfg2(pf[:, block]) for pf in pose_fea]
                 for i, t in enumerate(timesteps):
-                    pred = predict(cfg2(x[:, block]), t, i, ctx_t, banks_t, pose_w,
-                                   cache, 0)
-                    if mesh is not None:
-                        pred = gather_clip(pred)
-                    if do_cfg:
-                        pred = combine(*pred.chunk(2, dim=0))
-                    x = sched.step(pred, t, x, steps)
+                    with span("step", index=i):
+                        pred = predict(cfg2(x[:, block]), t, i, ctx_t, banks_t, pose_w,
+                                       cache, 0)
+                        if mesh is not None:
+                            pred = gather_clip(pred)
+                        if do_cfg:
+                            pred = combine(*pred.chunk(2, dim=0))
+                        with span("scheduler_step"):
+                            x = sched.step(pred, t, x, steps)
                 return x.permute(0, 1, 3, 4, 2).contiguous()
 
             def window_pose(win):
@@ -364,28 +384,32 @@ class Pose2VideoPipeline:
                 return [cfg2(pf[0][win]) for pf in pose_fea]
 
             for i, t in enumerate(timesteps):
-                noise_pred = torch.zeros((2 if do_cfg else 1,) + x.shape[1:],
-                                         dtype=torch.float32, device=dev)
-                counter = torch.zeros(video_length, dtype=torch.float32, device=dev)
-                for slot, (win, ok) in enumerate(step_batches[i if rotate else 0]):
-                    ctx_t, banks_t = cond_rows(win.shape[0])
-                    pred = predict(cfg2(x[0][win]), t, i, ctx_t, banks_t,
-                                   window_pose(win), cache, slot)
-                    parts = pred.chunk(2, dim=0) if do_cfg else (pred,)
-                    for k in range(win.shape[0]):
-                        if not ok[k]:
-                            continue
-                        for row, part in enumerate(parts):
-                            noise_pred[row].index_add_(0, win[k], part[k])
-                        counter.index_add_(0, win[k], torch.ones(win_len, device=dev))
-                if mesh is not None:
-                    sums = mesh.world.all_reduce_(
-                        torch.cat([noise_pred.reshape(-1), counter]))
-                    noise_pred = sums[:noise_pred.numel()].view_as(noise_pred)
-                    counter = sums[noise_pred.numel():]
-                noise_pred = noise_pred / counter[None, :, None, None, None]
-                pred = combine(noise_pred[0:1], noise_pred[1:2]) if do_cfg else noise_pred
-                x = sched.step(pred, t, x, steps)
+                with span("step", index=i):
+                    noise_pred = torch.zeros((2 if do_cfg else 1,) + x.shape[1:],
+                                             dtype=torch.float32, device=dev)
+                    counter = torch.zeros(video_length, dtype=torch.float32, device=dev)
+                    for slot, (win, ok) in enumerate(step_batches[i if rotate else 0]):
+                        with span("window_batch", rows=win.shape[0], valid=int(ok.sum())):
+                            ctx_t, banks_t = cond_rows(win.shape[0])
+                            pred = predict(cfg2(x[0][win]), t, i, ctx_t, banks_t,
+                                           window_pose(win), cache, slot)
+                        with span("scatter"):
+                            parts = pred.chunk(2, dim=0) if do_cfg else (pred,)
+                            for k in range(win.shape[0]):
+                                if not ok[k]:
+                                    continue
+                                for row, part in enumerate(parts):
+                                    noise_pred[row].index_add_(0, win[k], part[k])
+                                counter.index_add_(0, win[k], torch.ones(win_len, device=dev))
+                    if mesh is not None:
+                        sums = mesh.world.all_reduce_(
+                            torch.cat([noise_pred.reshape(-1), counter]))
+                        noise_pred = sums[:noise_pred.numel()].view_as(noise_pred)
+                        counter = sums[noise_pred.numel():]
+                    noise_pred = noise_pred / counter[None, :, None, None, None]
+                    pred = combine(noise_pred[0:1], noise_pred[1:2]) if do_cfg else noise_pred
+                    with span("scheduler_step"):
+                        x = sched.step(pred, t, x, steps)
             return x.permute(0, 1, 3, 4, 2).contiguous()
 
         return sample
@@ -409,13 +433,20 @@ class Pose2VideoPipeline:
             to_host_here, to_host = to_host, False
         out = []
         for i in mine:
-            img = self.m.vae.decode(chunks[i].to(self.dtype)).float()
-            img = (img / 2 + 0.5).clamp(0.0, 1.0)
-            img = torch.round(img * 255.0).to(torch.uint8).permute(0, 2, 3, 1).contiguous()
-            out.append(self._download(img) if to_host else (img, None))
-        for _, done in out:
-            if done is not None:
-                done.synchronize()
+            with span("vae_decode_chunk", frames=chunks[i].shape[0]):
+                img = self.m.vae.decode(chunks[i].to(self.dtype)).float()
+                img = (img / 2 + 0.5).clamp(0.0, 1.0)
+                img = torch.round(img * 255.0).to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+                out.append(self._download(img) if to_host else (img, None))
+        if to_host:
+            # the decode's own device work ends here, so that host_outputs
+            # times the last copies' waits and the host's own work only
+            self._sync()
+            with self.timer.phase("host_outputs"):
+                for _, done in out:
+                    if done is not None:
+                        done.synchronize()
+                return torch.cat([img for img, _ in out], dim=0)[:length].numpy()
         if self.mesh is not None:  # every rank's chunks, in order
             n = len(chunks)
             rows = [decode_chunk * len(range(n)[shard_rows(n, self.mesh.size, r)])
@@ -425,12 +456,13 @@ class Pose2VideoPipeline:
             video = torch.cat(self.mesh.world.all_gather(local, rows))[:length]
             if not to_host_here:
                 return video
-            host, done = self._download(video)
-            if done is not None:
-                done.synchronize()
-            return host.numpy()
-        video = torch.cat([img for img, _ in out], dim=0)[:length]
-        return video.numpy() if to_host else video
+            self._sync()
+            with self.timer.phase("host_outputs"):
+                host, done = self._download(video)
+                if done is not None:
+                    done.synchronize()
+                return host.numpy()
+        return torch.cat([img for img, _ in out], dim=0)[:length]
 
     def _initial_latents(self, seed: int, shape) -> torch.Tensor:
         """The initial noise, float32: the same on every rank of a mesh."""
@@ -490,13 +522,26 @@ class Pose2VideoPipeline:
         (``interp_method`` 'linear' or 'slerp') to (L - 1) * k + 1 frames
         before the decode.  Returns (frames, H, W, 3) float32 in [0, 1], or
         with ``return_device`` the uint8 video on the device."""
+        with span("request", frames=video_length, steps=num_inference_steps):
+            return self._generate(
+                ref_image, pose_images, width, height, video_length, num_inference_steps,
+                guidance_scale, seed, windowed, decode_chunk, interpolation_factor,
+                interp_method, return_device)
+
+    def _generate(self, ref_image, pose_images, width, height, video_length,
+                  num_inference_steps, guidance_scale, seed, windowed, decode_chunk,
+                  interpolation_factor, interp_method, return_device):
+        """The body of :meth:`__call__`: its phases, each ending in a
+        synchronisation of the compute stream."""
         poses_up = None
         if pose_images is None:
             ref, clip_img, poses = ref_image
         else:
-            host = self.stage_inputs(ref_image, pose_images, width, height, device=False)
-            ref, clip_img = self._ready(*self._upload(host[:2]))
-            poses_up = self._upload(host[2:])  # rides under the reference encode
+            with self.timer.phase("host_inputs"):
+                host = self.stage_inputs(ref_image, pose_images, width, height,
+                                         device=False)
+                ref, clip_img = self._ready(*self._upload(host[:2]))
+                poses_up = self._upload(host[2:])  # rides under the reference encode
         with self.timer.phase("encode_reference"):
             ctx_cfg, _, banks = self._encode_reference(ref, clip_img)
             self._sync()
@@ -517,9 +562,10 @@ class Pose2VideoPipeline:
         with self.timer.phase("vae_decode"):
             video = self._decode(latents, decode_chunk, to_host=not return_device)
             self._sync()
-        if return_device:
-            return video
-        return video.astype(np.float32) / 255.0
+            if return_device:
+                return video
+            with self.timer.phase("host_outputs"):
+                return video.astype(np.float32) / 255.0
 
 
 class Pose2ImagePipeline(Pose2VideoPipeline):

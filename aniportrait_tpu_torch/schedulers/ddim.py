@@ -9,6 +9,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from aniportrait_tpu_torch.utils.profiling import count
+
+
+def _at_timesteps(table: np.ndarray, t: torch.Tensor) -> torch.Tensor:
+    """float32 ``table[t]`` on ``t``'s device.  The table goes over from
+    pageable host memory: on a GPU a blocking copy, which waits for the
+    stream, so it counts as one of the host's ``host_syncs``."""
+    if t.device.type != "cpu":
+        count("host_syncs")
+    return torch.from_numpy(np.asarray(table, np.float32)).to(t.device)[t.long()]
+
 
 def make_betas(num_train_timesteps: int, beta_start: float, beta_end: float,
                beta_schedule: str) -> np.ndarray:
@@ -99,7 +110,7 @@ class DDIMScheduler:
     def _coefficients(self, sample: torch.Tensor, t: torch.Tensor):
         """sqrt(acp[t]) and sqrt(1 - acp[t]), float32 square roots, shaped
         to broadcast over ``sample``'s batch axis, in its dtype."""
-        acp = torch.from_numpy(self.alphas_cumprod).to(t.device)[t.long()]
+        acp = _at_timesteps(self.alphas_cumprod, t)
         shape = (-1,) + (1,) * (sample.ndim - 1)
         sa = torch.sqrt(acp).reshape(shape).to(sample.dtype)
         sb = torch.sqrt(1.0 - acp).reshape(shape).to(sample.dtype)
@@ -120,5 +131,5 @@ class DDIMScheduler:
 def compute_snr(alphas_cumprod: np.ndarray, t: torch.Tensor) -> torch.Tensor:
     """Signal-to-noise ratio acp / (1 - acp) per timestep, float32, for
     Min-SNR loss weighting (reference ``train_stage_1.py:101-128``)."""
-    acp = torch.from_numpy(np.asarray(alphas_cumprod, np.float32)).to(t.device)[t.long()]
+    acp = _at_timesteps(alphas_cumprod, t)
     return acp / (1.0 - acp)

@@ -50,6 +50,7 @@ from aniportrait_tpu_torch.train.train_step import (
     make_optimizer,
     train_step,
 )
+from aniportrait_tpu_torch.utils.profiling import count, span
 
 COMPUTE_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.bfloat16,
                   "no": torch.float32, "fp32": torch.float32}
@@ -181,7 +182,14 @@ def train(settings: Stage1Settings, modules: PipelineModules,
 
     Returns one ``{'step', 'loss', 'grad_norm', 'seconds'}`` per optimizer
     step (the loss is the mean over its micro-steps); each step's time ends
-    in a device synchronisation."""
+    in a device synchronisation.
+
+    Traced as one root span ``step`` an optimizer step (from its first
+    batch on, ``index`` its step number), holding ``data`` (the batch to
+    the device), ``forward``, ``backward``, ``clip`` and ``optimizer``
+    (``train_step``) and ``sync`` (the host reads of the loss and the
+    gradient norm); the counter ``host_syncs`` counts the step's blocking
+    host reads."""
     settings.check_schedule()
     device = torch.device(device)
     max_steps = settings.max_train_steps if max_steps is None else max_steps
@@ -218,20 +226,30 @@ def train(settings: Stage1Settings, modules: PipelineModules,
     try:
         for step in range(start, max_steps):
             t0 = time.perf_counter()
-            losses = []
-            for micro in range(k):
-                batch = next(batches, None)
-                if batch is None:
-                    return history
-                out = train_step(modules, optimizer, _to_device(batch, device),
-                                 compute_dtype=settings.compute_dtype,
-                                 max_grad_norm=settings.max_grad_norm,
-                                 generator=generator, accumulation_steps=k,
-                                 micro_step=micro, mesh=mesh, **loss_kwargs)
-                losses.append(out["loss"])
-            loss = float(torch.stack(losses).mean())
-            history.append(dict(step=step, loss=loss, grad_norm=float(out["grad_norm"]),
-                                seconds=time.perf_counter() - t0))
+            batch = next(batches, None)
+            if batch is None:
+                return history
+            with span("step", index=step):
+                losses = []
+                for micro in range(k):
+                    if micro:
+                        batch = next(batches, None)
+                        if batch is None:
+                            return history
+                    with span("data"):
+                        on_device = _to_device(batch, device)
+                    out = train_step(modules, optimizer, on_device,
+                                     compute_dtype=settings.compute_dtype,
+                                     max_grad_norm=settings.max_grad_norm,
+                                     generator=generator, accumulation_steps=k,
+                                     micro_step=micro, mesh=mesh, **loss_kwargs)
+                    losses.append(out["loss"])
+                with span("sync"):
+                    loss = float(torch.stack(losses).mean())
+                    grad_norm = float(out["grad_norm"])
+                    count("host_syncs", 2)
+                history.append(dict(step=step, loss=loss, grad_norm=grad_norm,
+                                    seconds=time.perf_counter() - t0))
             if tracker is not None and lead and step % 10 == 0:
                 print(tracker.log(step, {"loss": loss}), flush=True)
             done = step + 1

@@ -55,6 +55,7 @@ import torch
 from aniportrait_tpu_torch.factory import PipelineModules
 from aniportrait_tpu_torch.parallel.mesh import all_reduce_mean_
 from aniportrait_tpu_torch.schedulers import compute_snr
+from aniportrait_tpu_torch.utils.profiling import span
 
 VAE_SCALE = 0.18215
 TRAINED = ("reference_unet", "denoising_unet", "pose_guider")
@@ -289,10 +290,11 @@ def train_step(modules: PipelineModules, optimizer: torch.optim.Optimizer,
     modules.pose_guider.train()
     if micro_step == 0:
         optimizer.zero_grad(set_to_none=True)
-    with autocast:
+    with autocast, span("forward"):
         loss = loss_fn(modules, batch, draws=draws, generator=generator,
                        mesh=mesh, **loss_kwargs)
-    (loss / accumulation_steps if accumulation_steps > 1 else loss).backward()
+    with span("backward"):
+        (loss / accumulation_steps if accumulation_steps > 1 else loss).backward()
     loss = loss.detach()
     if mesh is not None:
         loss = mesh.world.all_reduce_(loss.float().clone()) / mesh.size
@@ -307,6 +309,8 @@ def train_step(modules: PipelineModules, optimizer: torch.optim.Optimizer,
             p.grad = torch.zeros_like(p)
     if mesh is not None:
         all_reduce_mean_([p.grad for p in params], mesh.world)
-    norm = clip_by_global_norm(params, max_grad_norm)
-    optimizer.step()
+    with span("clip"):
+        norm = clip_by_global_norm(params, max_grad_norm)
+    with span("optimizer"):
+        optimizer.step()
     return {"loss": loss, "grad_norm": norm, "stepped": True}
