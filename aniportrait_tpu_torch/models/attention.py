@@ -19,16 +19,20 @@ from aniportrait_tpu_torch.ops.attention import (
     temporal_attention,
     token_attention,
 )
+from aniportrait_tpu_torch.ops.kernels import norm
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm with float32 statistics, output in the input's dtype."""
+    """LayerNorm over the last dim with float32 statistics, output in the
+    input's dtype.  ``pe``: an ``(f, c)`` addend on natural ``(b, f, s, c)``
+    input, added in the input's dtype (the motion module's positional
+    encoding).  A CUDA bf16 call that autograd does not record runs kernel N2
+    (``ops/kernels/norm.py``), every other call the float32 composition."""
 
-    def forward(self, x):
-        return F.layer_norm(
-            x.float(), self.normalized_shape, self.weight.float(),
-            self.bias.float(), self.eps,
-        ).to(x.dtype)
+    def forward(self, x, pe=None):
+        if norm.engages(x, self.weight, self.bias):
+            return norm.layer_norm(x.contiguous(), self.weight, self.bias, self.eps, pe)
+        return norm.plain_layer_norm(x, self.weight, self.bias, self.eps, pe)
 
 
 class CrossAttention(nn.Module):

@@ -79,8 +79,7 @@ class TemporalTransformerBlock(nn.Module):
         """x: (b, f, s, c) natural layout."""
         f = x.shape[1]
         for attn, norm in zip(self.attention_blocks, self.norms):
-            pe = attn.pos_encoder.pe[:, :f, None, :].to(x.dtype)
-            x = x + attn(norm(x) + pe)
+            x = x + attn(norm(x, pe=attn.pos_encoder.pe[0, :f]))
         return x + self.ff(self.ff_norm(x))
 
 

@@ -8,9 +8,10 @@ reference torch checkpoint's.
 
 from __future__ import annotations
 
-import torch
 import torch.nn.functional as F
 from torch import nn
+
+from aniportrait_tpu_torch.ops.kernels import norm
 
 
 class GroupNorm(nn.GroupNorm):
@@ -20,24 +21,23 @@ class GroupNorm(nn.GroupNorm):
     InflatedGroupNorm), or with ``inflated=False`` taken over all
     ``video_length`` frames of a sample, as a plain GroupNorm on ``(b, c, f,
     h, w)`` (``GroupNorm5D(inflated=False)``,
-    ``aniportrait_tpu/models/resnet.py:104-128``)."""
+    ``aniportrait_tpu/models/resnet.py:104-128``).  ``silu``: the SiLU that
+    follows at the call site, applied in the input's dtype.  A CUDA bf16 call
+    that autograd does not record runs kernel N1 (``ops/kernels/norm.py``),
+    every other call the float32 composition."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
                  inflated: bool = True):
         super().__init__(num_groups, num_channels, eps=eps)
         self.inflated = inflated
 
-    def forward(self, x, video_length: int = 1):
-        xf = x.float()
-        pooled = not self.inflated and video_length > 1
-        if pooled:
-            bf, c, h, w = x.shape
-            xf = xf.reshape(bf // video_length, video_length, c, h, w).transpose(1, 2)
-        y = F.group_norm(xf, self.num_groups, self.weight.float(), self.bias.float(),
-                         self.eps)
-        if pooled:
-            y = y.transpose(1, 2).reshape(bf, c, h, w)
-        return y.to(x.dtype)
+    def forward(self, x, video_length: int = 1, silu: bool = False):
+        frames = 1 if self.inflated else video_length
+        if norm.engages(x, self.weight, self.bias):
+            return norm.group_norm(x.contiguous(), self.num_groups, self.weight, self.bias,
+                                   self.eps, frames, silu)
+        return norm.plain_group_norm(x, self.num_groups, self.weight, self.bias, self.eps,
+                                     frames, silu)
 
 
 class Downsample3D(nn.Module):
@@ -82,11 +82,11 @@ class ResnetBlock3D(nn.Module):
 
     def forward(self, x, temb=None, video_length: int = 1):
         """x: (b * f, c, h, w); temb: (b, temb_channels)."""
-        h = self.conv1(F.silu(self.norm1(x, video_length)))
+        h = self.conv1(self.norm1(x, video_length, silu=True))
         if temb is not None:
             t = self.time_emb_proj(F.silu(temb))
             h = h + t.repeat_interleave(video_length, dim=0)[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h, video_length)))
+        h = self.conv2(self.norm2(h, video_length, silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h

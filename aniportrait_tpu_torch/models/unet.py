@@ -28,7 +28,6 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -209,7 +208,7 @@ class AniUNet(nn.Module):
 
         if self.conv_out is None:
             return None, banks
-        x = self.conv_out(F.silu(self.conv_norm_out(x, f)))
+        x = self.conv_out(self.conv_norm_out(x, f, silu=True))
         return x.reshape(b, f, *x.shape[1:]), banks
 
     def _encode(self, x, emb, f, fold, pose_cond_fea, spatial, motion):

@@ -84,7 +84,7 @@ class VaeEncoder(nn.Module):
                 # diffusers Downsample2D: pad (0, 1, 0, 1), stride-2 valid conv
                 x = blk.downsamplers[0].conv(F.pad(x, (0, 1, 0, 1)))
         x = self.mid_block(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x, silu=True))
 
 
 class VaeDecoder(nn.Module):
@@ -117,7 +117,7 @@ class VaeDecoder(nn.Module):
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0].conv(F.interpolate(x, scale_factor=2.0,
                                                          mode="nearest"))
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x, silu=True))
 
 
 class AutoencoderKL(nn.Module):

@@ -2,7 +2,7 @@
 ``aniportrait_tpu/ops/pallas_attention.py``), their wrappers and plain
 versions.  Sources: ``aniportrait_tpu_torch/csrc``; build: ``build.py``."""
 
-from aniportrait_tpu_torch.ops.kernels import flash, small_seq, temporal
+from aniportrait_tpu_torch.ops.kernels import flash, norm, small_seq, temporal
 from aniportrait_tpu_torch.ops.kernels.flash import (
     flash_attention,
     flash_attention_bwd,
@@ -13,11 +13,13 @@ from aniportrait_tpu_torch.ops.kernels.flash import (
     tok_flash_noshift,
     tok_flash_unshifted,
 )
+from aniportrait_tpu_torch.ops.kernels.norm import group_norm, layer_norm
 from aniportrait_tpu_torch.ops.kernels.small_seq import ctg_packed, ssa_packed
 from aniportrait_tpu_torch.ops.kernels.temporal import nat_temporal
 
 # kernel id (the TPU kernel table in ROADMAP.md) -> wrapper; K2u is K2 in its
-# TPU form (the unshifted softmax), which counts apart from tok_flash
+# TPU form (the unshifted softmax), which counts apart from tok_flash; N1 and
+# N2 are the port's own normalisation kernels (no TPU counterpart)
 KERNELS = {
     "K1": tok_flash_banked,
     "K2": tok_flash,
@@ -30,6 +32,8 @@ KERNELS = {
     "K7": tok_flash_noshift,
     "K8": tok_flash_bounded,
     "K9": ssa_packed,
+    "N1": group_norm,
+    "N2": layer_norm,
 }
 
 

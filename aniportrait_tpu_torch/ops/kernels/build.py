@@ -59,6 +59,14 @@ _SIGNATURES = {
                                   _I, _I, ctypes.c_float, ctypes.c_float, _P],
     # dtype, q, k, v, o, n, t, seq, d, n_valid, stream
     "aniportrait_ssa_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, y, weight, bias, param dtype, samples, frames, channels, groups, h*w,
+    # eps, silu, stream
+    "aniportrait_group_norm_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   ctypes.c_float, _I, _P],
+    # x, y, weight, bias, param dtype, rows, c, eps, pe, pe dtype, frames,
+    # positions, stream
+    "aniportrait_layer_norm_fwd": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P,
+                                   _I, _I, _I, _P],
     # d, mode, lse, int[5] out: the 3xTF32 forward's block (no launch)
     "aniportrait_flash_tf32x3_shape": [_I, _I, _I, _P],
 }
@@ -148,4 +156,7 @@ def check(err: int, name: str) -> None:
 
 
 def stream_handle() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current CUDA stream of the current device, as the C entry points
+    take it (the raw handle: ``torch.cuda.current_stream().cuda_stream``
+    builds a Stream object, ~8 us a launch on the card's host)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())

@@ -41,6 +41,11 @@ Phases, each of which fails the run (nonzero exit) on any error:
    spills and shared memory per instantiation are printed (the 3xTF32
    forward's with the blocks an SM they allow); the backward, the 3xTF32
    forward and the short-sequence kernels (K3, K6, K9) must not spill.
+   The normalisation kernels N1 (GroupNorm, the SiLU fused, per frame and
+   pooled) and N2 (LayerNorm, the positional encoding fused), bf16 only,
+   run at the shapes of ``NORM_GROUP_SHAPES`` and ``NORM_LAYER_SHAPES``
+   against their plain versions (the float32 composition), with ATen's
+   norm on the bf16 tensor as the library call.
 2. reference: the micro model through the pipeline on the GPU (kernels) and
    on the CPU (plain versions) from the same weights and latents, float32,
    2 steps: at 256 px, 8 frames, exact windowed sampler; and at 112x80 px
@@ -51,7 +56,8 @@ Phases, each of which fails the run (nonzero exit) on any error:
    ``Pose2VideoPipeline`` at 512x512, 16 frames, 25 DDIM steps, CFG 3.5:
    two requests with different inputs and seeds.  K1-K4 must have launched
    during this phase as often as ``attention_reckoning`` counts from the
-   models, and the tensor-core flash forward and temporal kernel.
+   models, N1 and N2 as ``norm_reckoning`` counts, and the tensor-core
+   flash forward and temporal kernel.
 4. long clips: the same model at 576x768 (a 72x96 latent whose 9x12 level
    K3 cannot pack), 28 frames, 25 steps, CFG 3.5, each request through
    ``run_cases`` on its own pipeline over one set of modules: A, the exact
@@ -244,6 +250,12 @@ SOURCES = {
     "K5b.stage2": ("flash_attention_bwd stage 2 B=16",
                    "aniportrait_tpu_torch/csrc/flash_bwd_sm90.cu",
                    "aniportrait_tpu/ops/pallas_attention.py:468"),
+    # the normalisation kernels (no TPU counterpart: XLA fuses the JAX
+    # package's norms with their casts)
+    "N1": ("group_norm", "aniportrait_tpu_torch/csrc/norm_sm90.cu",
+           "none (XLA's GroupNorm, aniportrait_tpu/models/resnet.py:58)"),
+    "N2": ("layer_norm", "aniportrait_tpu_torch/csrc/norm_sm90.cu",
+           "none (XLA's LayerNorm, aniportrait_tpu/models/attention.py)"),
     # K4 in float32 at wav2vec2's self-attention (its 3xTF32 form): the
     # audio phase's B=1 S=1800 H=12 d=64 row, launches from the 40-s clip
     "K4.audio": ("flash_attention wav2vec2 float32 B=1 S=1800 H=12 d=64",
@@ -625,6 +637,79 @@ def kernel_cases(dtype):
     return cases
 
 
+# (rows, c, h, w, silu, frames a sample for the pooled form) of N1 and
+# (shape, with the positional encoding) of N2: the shapes one f16 request
+# (32 UNet rows) and one f48 request (128 rows) run, the pooled form once
+NORM_GROUP_SHAPES = (
+    (32, 320, 64, 64, True, 1), (32, 320, 64, 64, False, 1), (32, 960, 64, 64, True, 1),
+    (32, 640, 32, 32, True, 1), (32, 1280, 16, 16, False, 1), (32, 1280, 8, 8, True, 1),
+    (128, 320, 64, 64, True, 1), (128, 640, 32, 32, False, 1),
+    (32, 320, 64, 64, False, 16),
+    (16, 320, 32, 32, False, 1), (16, 1280, 8, 8, False, 1),
+    (8, 512, 64, 64, True, 1), (8, 512, 128, 128, True, 1), (8, 256, 256, 256, True, 1),
+    (8, 512, 256, 256, True, 1), (8, 128, 512, 512, True, 1), (8, 256, 512, 512, True, 1),
+)
+NORM_LAYER_SHAPES = (
+    ((32, 4096, 320), False), ((32, 1024, 640), False), ((32, 256, 1280), False),
+    ((32, 64, 1280), False), ((2, 16, 4096, 320), True), ((2, 16, 64, 1280), True),
+    ((8, 16, 4096, 320), True), ((8, 16, 1024, 640), True), ((1, 257, 1024), False),
+    ((16, 1024, 1408), False),
+)
+
+
+def norm_cases():
+    """N1 and N2 cases in ``kernel_cases``' form, bf16 at the shapes of
+    ``NORM_GROUP_SHAPES`` and ``NORM_LAYER_SHAPES``: the kernel against the
+    float32 composition (its plain version) and ATen's norm on the bf16
+    tensor (then ``F.silu`` or the encoding add) as the library yardstick;
+    bytes: the activation read once and written once."""
+    import torch
+    import torch.nn.functional as F
+
+    from aniportrait_tpu_torch.ops.kernels import norm
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf16 = torch.bfloat16
+    rand = lambda *s, scale=1.0, shift=0.0: (torch.randn(
+        *s, generator=g, device="cuda") * scale + shift).to(bf16)
+    cases = []
+    for rows, c, h, w, silu, frames in NORM_GROUP_SHAPES:
+        x = rand(rows, c, h, w, scale=2.0, shift=0.5)
+        wt, b = rand(c, scale=0.3, shift=1.0), rand(c, scale=0.3)
+
+        def library(x=x, wt=wt, b=b, silu=silu, frames=frames):
+            xv = x if frames == 1 else x.view(-1, frames, *x.shape[1:]).transpose(1, 2)
+            y = F.group_norm(xv, 32, wt, b, 1e-5)
+            return F.silu(y) if silu else y
+
+        cases.append(dict(
+            kid="N1", label=f"({rows}, {c}, {h}, {w}) 32 groups" + (" + SiLU" if silu else "")
+            + (f" pooled over {frames} frames" if frames > 1 else ""),
+            run=lambda x=x, wt=wt, b=b, silu=silu, frames=frames:
+                norm.group_norm(x, 32, wt, b, 1e-5, frames, silu),
+            plain=lambda x=x, wt=wt, b=b, silu=silu, frames=frames:
+                norm.plain_group_norm(x, 32, wt, b, 1e-5, frames, silu),
+            library=library, flops=0.0, nbytes=2 * _nbytes(x), guarded=None, tiled=None,
+            d=None, contract=None))
+    for shape, with_pe in NORM_LAYER_SHAPES:
+        c = shape[-1]
+        x = rand(*shape, scale=2.0, shift=0.5)
+        wt, b = rand(c, scale=0.3, shift=1.0), rand(c, scale=0.3)
+        pe = rand(shape[1], c) if with_pe else None
+
+        def library(x=x, wt=wt, b=b, pe=pe):
+            y = F.layer_norm(x, (x.shape[-1],), wt, b, 1e-5)
+            return y if pe is None else y + pe[:, None, :]
+
+        cases.append(dict(
+            kid="N2", label=f"{tuple(shape)}" + (" + PE" if with_pe else ""),
+            run=lambda x=x, wt=wt, b=b, pe=pe: norm.layer_norm(x, wt, b, 1e-5, pe),
+            plain=lambda x=x, wt=wt, b=b, pe=pe: norm.plain_layer_norm(x, wt, b, 1e-5, pe),
+            library=library, flops=0.0, nbytes=2 * _nbytes(x), guarded=None, tiled=None,
+            d=None, contract=None))
+    return cases
+
+
 def _check(got, ref):
     """(ok, max abs error, rel-L2 error, bound) of outputs against the plain
     version's; each output is held to the tolerance of its own dtype."""
@@ -725,7 +810,7 @@ def kernel_phase(results: dict) -> None:
             failed.append(f"ptxas: {line}")
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
-        for c in kernel_cases(dtype):
+        for c in kernel_cases(dtype) + (norm_cases() if name == "bfloat16" else []):
             row = _kernel_row(c, dtype, failed)
             if c["kid"] not in results and name == "bfloat16":
                 results[c["kid"]] = row
@@ -932,7 +1017,7 @@ def pipeline_phase(results: dict) -> None:
         f"peak device memory {peak:.2f} GiB; kernel launches {counts}")
     if np.array_equal(videos[0], videos[1]):
         raise SystemExit("pipeline: two different requests gave the same video")
-    serving = ("K1", "K2", "K3", "K4")
+    serving = ("K1", "K2", "K3", "K4", "N1", "N2")
     never = [k for k in serving if counts[k] == 0]
     if never:
         raise SystemExit(f"pipeline: kernels {never} never launched on the main path")
@@ -946,7 +1031,8 @@ def pipeline_phase(results: dict) -> None:
         f"model's structure: {by_level}; counted over both requests: {counts['K3']}")
     if 2 * sum(by_level.values()) != counts["K3"]:
         raise SystemExit("pipeline: K3 launches differ from the model's reckoning")
-    want = attention_reckoning(pipe.m, res, res, frames, steps)
+    want = {**attention_reckoning(pipe.m, res, res, frames, steps),
+            **norm_reckoning(pipe.m, steps, -(-frames // 8))}
     off = {k: (counts[k], 2 * n) for k, n in want.items() if counts[k] != 2 * n}
     if off:
         raise SystemExit(f"pipeline: launches over both requests (counted, reckoned) "
@@ -1212,6 +1298,25 @@ def attention_reckoning(modules, height: int, width: int, frames: int, steps: in
                                        2 * windows_per_call, window_frames):
         counts[route] += calls
     return {kid: counts[kid] for kid in ("K1", "K2", "K3", "K4")}
+
+
+def norm_reckoning(modules, unet_calls: int, decode_chunks: int) -> dict:
+    """N1 and N2 launches of one bf16 request, from the models' structure:
+    every ``GroupNorm`` and ``LayerNorm`` of a model runs once a model call
+    (CLIP, the VAE encoder and the ReferenceNet once, the PoseGuider once
+    on the clip, the denoising UNet ``unet_calls`` times, the VAE decoder
+    once a chunk of ``decode_chunks``)."""
+    from aniportrait_tpu_torch.models.attention import LayerNorm
+    from aniportrait_tpu_torch.models.resnet import GroupNorm
+
+    def count(model, kind):
+        return sum(isinstance(m, kind) for m in model.modules())
+
+    once = (modules.clip, modules.vae.encoder, modules.reference_unet, modules.pose_guider)
+    return {kid: sum(count(m, kind) for m in once)
+            + unet_calls * count(modules.denoising_unet, kind)
+            + decode_chunks * count(modules.vae.decoder, kind)
+            for kid, kind in (("N1", GroupNorm), ("N2", LayerNorm))}
 
 
 def write_checkpoints(modules, root, base=None, safetensors: bool = False) -> dict:

@@ -18,7 +18,10 @@ units, have the flash backward (bf16 up to d = 128:
 ``csrc/temporal_attn_sm90.cu``, held to the Pallas rounding contract of
 ``temporal.plain_nat_temporal_rounded``) and the short-sequence kernels K6
 and K9 (bf16 with d % 8 == 0: ``csrc/small_seq_attn_sm90.cu``, held to
-their plain versions at the smoke's bf16 tolerance).
+their plain versions at the smoke's bf16 tolerance).  The normalisation
+kernels N1 and N2 (``csrc/norm_sm90.cu``, bf16 only) are held to their plain
+versions at the same tolerance at the shapes the generation cells run, and
+the models' norms take them only where autograd records nothing.
 """
 
 import copy
@@ -719,3 +722,138 @@ def test_audio_models_match_cpu(rand):
         scale = w.abs().max().item()
         assert scale > 1e-3
         torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
+
+
+# N1 at the shapes the generation cells run: (rows, c, h, w, frames a sample
+# for the pooled form); the UNet's levels at 32 (f16) and 128 (f48) rows, the
+# widest concatenations, the ReferenceNet's 2 rows, the PoseGuider's 16, the
+# VAE's 64-512 px levels (8-frame decode chunks, the 1-image encode), the
+# pooled form, and odd shapes that take the scalar accesses
+N1_SHAPES = [
+    (32, 320, 64, 64, 1), (32, 960, 64, 64, 1), (32, 640, 32, 32, 1), (32, 1920, 32, 32, 1),
+    (32, 1280, 16, 16, 1), (32, 2560, 16, 16, 1), (32, 1280, 8, 8, 1), (32, 2560, 8, 8, 1),
+    (128, 320, 64, 64, 1), (128, 640, 64, 64, 1), (128, 640, 32, 32, 1),
+    (128, 1280, 16, 16, 1), (128, 1280, 8, 8, 1), (2, 1280, 8, 8, 1),
+    (32, 320, 64, 64, 16), (128, 640, 32, 32, 16),
+    (16, 320, 32, 32, 1), (16, 640, 16, 16, 1), (16, 1280, 8, 8, 1),
+    (8, 512, 64, 64, 1), (8, 512, 128, 128, 1), (8, 256, 256, 256, 1), (8, 512, 256, 256, 1),
+    (8, 128, 512, 512, 1), (8, 256, 512, 512, 1), (1, 128, 512, 512, 1),
+    (6, 64, 5, 3, 1), (6, 64, 5, 3, 3), (4, 96, 9, 12, 1),
+]
+# N2: (shape, with the positional encoding); the transformer tokens of the
+# UNets, the motion modules' natural (b, f, s, c) with the encoding, CLIP,
+# the PoseGuider's 1408 channels, and odd widths (scalar form)
+N2_SHAPES = [
+    ((32, 4096, 320), False), ((32, 1024, 640), False), ((32, 256, 1280), False),
+    ((32, 64, 1280), False), ((128, 4096, 320), False), ((128, 64, 1280), False),
+    ((2, 16, 4096, 320), True), ((2, 16, 1024, 640), True), ((2, 16, 256, 1280), True),
+    ((2, 16, 64, 1280), True), ((8, 16, 4096, 320), True), ((8, 16, 64, 1280), True),
+    ((1, 257, 1024), False), ((1, 1024), False), ((16, 1024, 1408), False),
+    ((16, 64, 1408), False), ((3, 5, 12), False), ((2, 3, 4, 12), True), ((7, 2304), False),
+]
+
+
+def _affine(rand, c, dtype=torch.bfloat16):
+    return (rand(torch.float32, c) * 0.3 + 1).to(dtype), (rand(torch.float32, c) * 0.3).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("rows,c,h,w,frames", N1_SHAPES)
+def test_group_norm_matches_plain(rand, rows, c, h, w, frames, silu):
+    """N1 against its plain version (the float32 composition, then F.silu
+    in bf16), per frame and pooled, at chip_smoke.py's bf16 tolerance; it
+    counts a launch.  Inputs off zero mean, as activations are."""
+    from aniportrait_tpu_torch.ops.kernels import norm
+
+    x = (rand(torch.float32, rows, c, h, w) * 2 + 0.5).to(torch.bfloat16)
+    for wdtype in (torch.bfloat16, torch.float32):
+        weight, bias = _affine(rand, c, wdtype)
+        before = K.launch_counts()["N1"]
+        got = norm.group_norm(x, 32, weight, bias, 1e-5, frames, silu)
+        assert K.launch_counts()["N1"] == before + 1
+        _bf16_close(got, norm.plain_group_norm(x, 32, weight, bias, 1e-5, frames, silu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,with_pe", N2_SHAPES)
+def test_layer_norm_matches_plain(rand, shape, with_pe):
+    """N2 against its plain version (the float32 composition, plus the
+    encoding in bf16) at chip_smoke.py's bf16 tolerance, with bf16 and
+    float32 parameters and encodings; it counts a launch."""
+    from aniportrait_tpu_torch.ops.kernels import norm
+
+    c = shape[-1]
+    x = (rand(torch.float32, *shape) * 2 + 0.5).to(torch.bfloat16)
+    for pdtype in (torch.bfloat16, torch.float32):
+        weight, bias = _affine(rand, c, pdtype)
+        pe = rand(pdtype, shape[1], c) if with_pe else None
+        before = K.launch_counts()["N2"]
+        got = norm.layer_norm(x, weight, bias, 1e-5, pe)
+        assert K.launch_counts()["N2"] == before + 1
+        _bf16_close(got, norm.plain_layer_norm(x, weight, bias, 1e-5, pe))
+
+
+@pytest.mark.cuda
+def test_norm_modules_engage_only_where_autograd_records_nothing(rand):
+    """The models' GroupNorm and LayerNorm on the card: a bf16 call under
+    no_grad, or with nothing requiring a gradient, runs N1 / N2; a call
+    autograd records (a trainable weight, or an input that requires a
+    gradient) and every float32 call take the composition, bit for bit,
+    and the counters do not move."""
+    from aniportrait_tpu_torch.models.attention import LayerNorm
+    from aniportrait_tpu_torch.models.resnet import GroupNorm
+    from aniportrait_tpu_torch.ops.kernels import norm
+
+    gn = GroupNorm(32, 320, eps=1e-6).cuda()
+    ln = LayerNorm(320).cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        gn.to(dtype), ln.to(dtype)
+        x = rand(dtype, 4, 320, 16, 16)
+        t = rand(dtype, 2, 4, 64, 320)
+        pe = rand(torch.float32, 4, 320)
+        plain_g = norm.plain_group_norm(x, 32, gn.weight, gn.bias, gn.eps, 1, True)
+        plain_l = norm.plain_layer_norm(t, ln.weight, ln.bias, ln.eps, pe)
+        for grad in (False, True):
+            for trainable in (False, True):
+                gn.requires_grad_(trainable), ln.requires_grad_(trainable)
+                before = K.launch_counts()
+                with torch.set_grad_enabled(grad):
+                    got_g, got_l = gn(x, silu=True), ln(t, pe=pe)
+                    xr = x.detach().requires_grad_()
+                    recorded = gn(xr, silu=True)
+                counts = K.launch_counts()
+                kernel = dtype == torch.bfloat16 and not (grad and trainable)
+                assert counts["N2"] - before["N2"] == int(kernel)
+                assert counts["N1"] - before["N1"] == int(kernel) + int(
+                    dtype == torch.bfloat16 and not grad)
+                if kernel:
+                    _bf16_close(got_g, plain_g)
+                    _bf16_close(got_l, plain_l)
+                else:
+                    assert torch.equal(got_g, plain_g) and torch.equal(got_l, plain_l)
+                if grad:
+                    assert recorded.requires_grad and torch.equal(recorded, plain_g)
+
+
+@pytest.mark.cuda
+def test_norm_wrappers_refuse_what_the_kernels_do_not_take(rand):
+    """Float32, non-contiguous and misshapen inputs are refused with a clear
+    error, never run by a fallback."""
+    from aniportrait_tpu_torch.ops.kernels import norm
+
+    x = rand(torch.bfloat16, 4, 64, 8, 8)
+    w, b = _affine(rand, 64)
+    with pytest.raises(TypeError, match="bf16"):
+        norm.group_norm(x.float(), 32, w, b, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        norm.group_norm(x.transpose(2, 3), 32, w, b, 1e-5)
+    with pytest.raises(ValueError, match="groups"):
+        norm.group_norm(x, 32, w, b, 1e-5, frames=3)
+    t = rand(torch.bfloat16, 2, 4, 8, 64)
+    with pytest.raises(TypeError, match="bf16"):
+        norm.layer_norm(t.float(), w, b, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        norm.layer_norm(t.transpose(1, 2), w, b, 1e-5)
+    with pytest.raises(ValueError, match="pe"):
+        norm.layer_norm(t, w, b, 1e-5, rand(torch.float32, 3, 64))
