@@ -1,7 +1,8 @@
 // Flash-attention forward, bf16 form, on Hopper's tensor cores (sm_90a):
-// wgmma for both products, TMA tile loads into a two-stage shared-memory
-// ring fed by a producer warp.  The C entry points of flash_attn.cu send
-// every bf16 call here (float32 runs flash_attn.cu's FMA kernel), so this
+// wgmma for both products, TMA tile loads into a shared-memory ring fed by
+// a producer warp, and the two consumer warpgroups on FlashAttention-3's
+// schedule (Shah et al., 2024).  The C entry points of flash_attn.cu send
+// every bf16 call here (float32 runs the 3xTF32 or FMA kernels), so this
 // kernel replaces the same Pallas TPU kernels of
 // aniportrait_tpu/ops/pallas_attention.py in every softmax mode:
 //   K1  _tok_flash_banked_impl (two KV segments: own keys, then the bank at
@@ -18,29 +19,47 @@
 // sum in float32; l sums the unrounded p; p rounded to bf16 for PV, as the
 // TPU kernels round it.  The fixed-shift modes keep flash_attn.cu's
 // contracts (K7 sums the rounded p; K2u rounds q x its rounded multiplier at
-// the load).
+// the load).  flash.plain_attention_tiled with flash.wgmma_block_kv(d) keys
+// a step is this arithmetic in torch.
 //
-// What bounds it on an H100: at the main path's shapes the work is
-// 4*Sq*Skv*d FLOPs per head against (Sq + 2 Skv) * d loaded elements, far
-// above the card's ~295 FLOP/byte ridge: the tensor cores (989 TFLOP/s bf16)
-// bound it.  The design:
+// What bounds it on an H100: every logit costs one exp2 on the MUFU (16 a
+// clock an SM) against 4 d matrix FLOPs on the tensor cores (~4,100 a clock
+// an SM in bf16), so at d = 40 (K1, K2 at 64x64: DP = 48) the exp units
+// need more time than the products, ~1.3x, and at d = 80 the tensor cores
+// lead.  Done one after the other, as a warpgroup's own data dependences
+// order them (S = QK^T, softmax, O += PV), the two add up; the design keeps
+// both busy at once:
 //   * one block = 128 query rows of one (batch row, head): two consumer
-//     warpgroups of 64 rows and one producer warp (288 threads).  ptxas
-//     gives such a block 168 registers a thread (it counts whole
-//     warpgroups).  The KV loop runs inside the block over the two segments'
-//     tiles of BKV keys (128 for head tiles up to 128, else 64: O, S and P
-//     take 176 registers a thread at DP = 256, so DP >= 224 spills).
-//   * loads: the producer's lane 0 issues TMA copies from 4-D tensor maps
-//     (d, heads, S, B) -- the bank's with (d, heads, S_bank, B / rep) -- into
-//     a ring of two K/V stages, completion on mbarriers (K and V apart, so
-//     QK^T starts before V lands); consumers free a stage with one arrival
-//     per warp.  Each box is 8 columns (16 bytes) x the tile's rows, which
-//     lays a tile out as wgmma's unswizzled core matrices (8 rows x 16
-//     bytes, contiguous); the tensor map's end zero-fills the ragged last
-//     tile, and the head tile's pad columns (DP = round_up(d, 16) > d) are
-//     zeroed once in shared memory and never loaded.  Head dims that are not
-//     a multiple of 8 (or unaligned bases) cannot be TMA'd: the producer warp
-//     then copies the same layout with scalar loads (no real model has them).
+//     warpgroups of 64 rows and one producer warp (288 threads; ptxas gives
+//     such a block 168 registers a thread, counting whole warpgroups).  The
+//     KV loop runs inside the block over the two segments' tiles.
+//   * ping-pong: the warpgroups take turns to issue their products, on two
+//     named barriers (bar.sync on its own, bar.arrive on the other's after
+//     issuing), so one warpgroup's products run on the tensor cores while
+//     the other computes its softmax.
+//   * inside a warpgroup, at every head tile: at key tile t it issues S_t =
+//     Q K_t^T and O += P_{t-1} V_{t-1} together, on one turn, waits for S_t
+//     alone (wgmma.wait_group 1), computes tile t's softmax, then waits for
+//     the PV product, rescales O and packs P_t.  Two tiles live in registers
+//     at once (S_t in float32, P_{t-1} in bf16), so the tile takes BKV_WIDE
+//     keys up to WIDE_MAX_DP and BKV_NARROW above; from DP = 160 (no cell
+//     runs bf16 above 128) O alone is 80-128 registers and ptxas spills 8
+//     to 1040 bytes.  ptxas (CUDA 12, sm_90a) schedules the PV wait ahead of the softmax's
+//     exponentials, so the product overlaps only the masking and part of
+//     the row max; a form that keeps the wait behind them (waited for in
+//     the next iteration's basic block) measured slower at d = 40 (K1 2.52
+//     against 2.32 ms) and equal at d = 80, and is not used.
+//   * loads: the producer's lane 0 issues each Q, K or V tile as one TMA box
+//     of a 5-D map (8, S, d / 8, heads, B) -- the bank's with B / rep rows --
+//     which lands in wgmma's unswizzled core-matrix layout (8 rows x 16
+//     bytes, contiguous) with the head tile's pad columns (DP = round_up(d,
+//     16) > d) and a ragged last tile zero-filled by the copy itself.  The
+//     ring has as many K/V stages as 227 KB hold (up to MAX_STAGES); K and V
+//     complete on mbarriers apart, so QK^T starts before V lands; consumers
+//     free a stage with one arrival per warp once its PV product is done.
+//     Head dims that are not a multiple of 8 (or unaligned bases) cannot be
+//     TMA'd: the producer warp then copies the same layout with scalar
+//     loads (no real model has them).
 //   * QK^T: wgmma m64 n BKV k16, Q and K both K-major from shared memory,
 //     float32 accumulators in registers.  Masks go by column index (kv_split
 //     inside segment 0, the segment's end), never by the zero fill.
@@ -51,7 +70,9 @@
 //     layout is the A operand's), V as an MN-major B operand (transpose bit),
 //     O += P V with wgmma m64 n{64,48,32,16} k16 over DP.
 //   * epilogue: divide by l, the LSE, the guard (per-warp vote, one atomicOr
-//     per warp), bf16 stores.
+//     per warp), bf16 stores (two columns a store).
+// The roofline share at d = 40 that counts matrix FLOPs and bytes alone
+// cannot pass ~65 %: the exp2 count holds the kernel above that.
 #include "flash_fwd.cuh"
 #include "sm90.cuh"
 
@@ -62,16 +83,27 @@ constexpr int BQ = 128;        // query rows per block
 constexpr int WG_ROWS = 64;    // query rows per consumer warpgroup
 constexpr int CONSUMERS = 256; // two warpgroups
 constexpr int THREADS = CONSUMERS + 32;
-constexpr int STAGES = 2;
+constexpr int PING_BAR = 3;    // named barrier 3 + wg: warpgroup wg's turn (1 + wg: its own sync)
+
+// The tile table (aniportrait_flash_sm90_shape reports the block it gives;
+// ops/kernels/flash.py:wgmma_block_kv repeats BKV for the plain version).
+constexpr int BKV_WIDE = 128;         // keys a tile up to WIDE_MAX_DP
+constexpr int BKV_NARROW = 64;        // keys a tile above it
+constexpr int WIDE_MAX_DP = 80;
+constexpr int MAX_STAGES = 8;
+constexpr int SMEM_LIMIT = 232448;    // 227 KB, a block's most on sm_90
+constexpr int BAR_BYTES = 256;        // 1 + 3 x MAX_STAGES mbarriers, padded
 
 template <int DP>
 struct Tile {
-  static constexpr int BKV = DP <= 128 ? 128 : 64;
+  static constexpr int BKV = DP <= WIDE_MAX_DP ? BKV_WIDE : BKV_NARROW;
   static constexpr int NCH = DP / 8;  // 16-byte column chunks of a row
-  static constexpr size_t Q_BYTES = size_t(BQ) * DP * 2;
-  static constexpr size_t KV_BYTES = size_t(BKV) * DP * 2;
-  static constexpr size_t BAR_BYTES = 128;  // 7 mbarriers, padded
-  static constexpr size_t SMEM = BAR_BYTES + Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BKV * DP * 2;
+  static constexpr int FIT = (SMEM_LIMIT - BAR_BYTES - Q_BYTES) / (2 * KV_BYTES);
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
+  static constexpr int SMEM = BAR_BYTES + Q_BYTES + 2 * STAGES * KV_BYTES;
+  static_assert(STAGES >= 2 && SMEM <= SMEM_LIMIT, "the ring needs two stages");
 };
 
 struct alignas(64) Sm90Params {
@@ -80,6 +112,112 @@ struct alignas(64) Sm90Params {
   int tma;  // 1: TMA loads; 0: the producer warp's scalar loads
 };
 
+// S = Q K^T for one key tile, issued (not waited for) and committed
+template <int DP, int BKV>
+__device__ __forceinline__ void issue_qk(float (&sc)[BKV / 2], uint32_t q_base,
+                                         uint32_t k_base) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss<BKV>(sc, make_desc(q_base + kk * 2 * BQ * 16, BQ * 16, 128),
+                  make_desc(k_base + kk * 2 * BKV * 16, BKV * 16, 128), kk > 0);
+  wgmma_commit();
+}
+
+// O += P V for one key tile, issued (not waited for) and committed
+template <int DP, int BKV>
+__device__ __forceinline__ void issue_pv(float (&o)[DP / 2], const uint32_t (&pa)[BKV / 16][4],
+                                         uint32_t v_base) {
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk) {
+#pragma unroll
+    for (int n = 0; n < DP / 64; ++n)
+      wgmma_rs<64>(o + 32 * n, pa[kk],
+                   make_desc(v_base + kk * 256 + n * 8 * BKV * 16, 128, BKV * 16));
+    if constexpr (DP % 64 != 0)
+      wgmma_rs<DP % 64>(o + 32 * (DP / 64), pa[kk],
+                        make_desc(v_base + kk * 256 + (DP / 64) * 8 * BKV * 16, 128, BKV * 16));
+  }
+  wgmma_commit();
+}
+
+// One tile's softmax in place: S (float32 logits) -> p, with the running max
+// m and the partial sums l updated and alpha the factor O takes (RUNMAX; 1
+// in the fixed shifts).  Register 4g + 2i + j holds row r0 + 8i, column
+// 8g + 2 quad + j of the tile; columns at or past `len` are masked.
+template <int BKV, int MODE>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BKV / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0, int len, int quad,
+                                             float mult, const float (&bnd)[2]) {
+  if (k0 + BKV > len) {
+#pragma unroll
+    for (int g = 0; g < BKV / 8; ++g)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          if (k0 + 8 * g + 2 * quad + j >= len) sc[4 * g + 2 * i + j] = neg_inf();
+  }
+  alpha[0] = alpha[1] = 1.f;
+  if (MODE == RUNMAX) {
+    // the max of the unscaled logits (scale > 0); m is scaled
+    float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+    for (int g = 0; g < BKV / 8; ++g)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        mx[i] = fmaxf(mx[i], fmaxf(sc[4 * g + 2 * i], sc[4 * g + 2 * i + 1]));
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i] * mult);  // finite: column k0 is valid
+      alpha[i] = ex2(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < BKV / 8; ++g)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float x = sc[4 * g + 2 * i + j];
+        float pr;
+        if (MODE == RUNMAX) {
+          pr = ex2(fmaf(x, mult, -m[i]));
+          l[i] += pr;  // the unrounded p
+        } else if (MODE == NOSHIFT_E) {
+          pr = round_as<bf16>(ex2(x * kLog2e));  // expf's long sequence spills
+          l[i] += pr;  // the rounded p
+        } else {
+          pr = ex2(MODE == BOUNDED_2 ? x - bnd[i] : x);
+          l[i] += pr;  // the unrounded p
+        }
+        sc[4 * g + 2 * i + j] = pr;
+      }
+}
+
+// O x alpha (RUNMAX), then P (bf16) as wgmma A fragments: k-step kk = keys
+// [16 kk, 16 kk + 16)
+template <int DP, int BKV, int MODE>
+__device__ __forceinline__ void rescale_pack(float (&o)[DP / 2], uint32_t (&pa)[BKV / 16][4],
+                                             const float (&sc)[BKV / 2], const float (&alpha)[2]) {
+  if (MODE == RUNMAX) {
+#pragma unroll
+    for (int g = 0; g < DP / 8; ++g)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        o[4 * g + 2 * i] *= alpha[i];
+        o[4 * g + 2 * i + 1] *= alpha[i];
+      }
+  }
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+}
+
 // ------------------------------------------------------------------ kernel
 template <int DP, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -87,18 +225,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   using TL = Tile<DP>;
   constexpr int BKV = TL::BKV;
   constexpr int NCH = TL::NCH;
+  constexpr int STAGES = TL::STAGES;
   const FlashArgs& a = p.a;
   if (MODE == RUNMAX && a.pred != nullptr && *a.pred == 0) return;
 
   extern __shared__ __align__(128) uint8_t smem[];
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // q, kfull[2], vfull[2], empty[2]
-  bf16* sQ = reinterpret_cast<bf16*>(smem + TL::BAR_BYTES);
-  bf16* sK = reinterpret_cast<bf16*>(smem + TL::BAR_BYTES + TL::Q_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // q, kfull[], vfull[], empty[]
+  bf16* sQ = reinterpret_cast<bf16*>(smem + BAR_BYTES);
+  bf16* sK = reinterpret_cast<bf16*>(smem + BAR_BYTES + TL::Q_BYTES);
   bf16* sV = sK + STAGES * BKV * DP;
   const uint32_t bar_q = smem_u32(&bars[0]);
   auto bar_kfull = [&](int s) { return smem_u32(&bars[1 + s]); };
-  auto bar_vfull = [&](int s) { return smem_u32(&bars[3 + s]); };
-  auto bar_empty = [&](int s) { return smem_u32(&bars[5 + s]); };
+  auto bar_vfull = [&](int s) { return smem_u32(&bars[1 + STAGES + s]); };
+  auto bar_empty = [&](int s) { return smem_u32(&bars[1 + 2 * STAGES + s]); };
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
@@ -106,7 +245,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int b = blockIdx.z;
   const int d = a.d;
   const int ld = a.heads * d;
-  const int nchl = (d + 7) / 8;  // chunks holding data; the rest stay zero
 
   // tiles: segment 0 (own keys, kv_split for dropped rows), then the bank
   const int len0 = (a.drop != nullptr && a.drop[b] != 0) ? a.kv_split : a.skv;
@@ -122,32 +260,19 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // the pad chunks [nchl, NCH) of Q and of every K / V stage: zero, once
-  if (nchl < NCH) {
-    const int pad = NCH - nchl;
-    for (int i = tid; i < pad * BQ; i += THREADS)
-      reinterpret_cast<uint4*>(sQ)[nchl * BQ + i] = make_uint4(0, 0, 0, 0);
-    for (int i = tid; i < 2 * STAGES * pad * BKV; i += THREADS) {
-      const int t = i / (pad * BKV);
-      reinterpret_cast<uint4*>(sK + t * BKV * DP)[nchl * BKV + i - t * pad * BKV] =
-          make_uint4(0, 0, 0, 0);
-    }
-    fence_async_smem();
-  }
   __syncthreads();
 
-  const bf16* gq = static_cast<const bf16*>(a.q) + static_cast<size_t>(b) * a.sq * ld + h * d;
   if (tid >= CONSUMERS) {
     // ======================================================== producer warp
     const int lane = tid & 31;
     const int bb = b / a.rep;
     if (p.tma) {
       if (lane == 0) {
-        mbar_expect_tx(bar_q, nchl * BQ * 16);
-        for (int c = 0; c < nchl; ++c)
-          tma_load_4d(smem_u32(sQ + c * BQ * 8), &p.tq, bar_q, c * 8, h, q0, b);
+        mbar_expect_tx(bar_q, TL::Q_BYTES);
+        tma_load_5d(smem_u32(sQ), &p.tq, bar_q, 0, q0, 0, h, b);
       }
     } else {
+      const bf16* gq = static_cast<const bf16*>(a.q) + static_cast<size_t>(b) * a.sq * ld + h * d;
       copy_tile<NCH>(sQ, gq, ld, q0, BQ, a.sq, d);
       fence_async_smem();
       __syncwarp();
@@ -162,15 +287,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       bf16* dv = sV + s * BKV * DP;
       if (p.tma) {
         if (lane == 0) {
-          const CUtensorMap* mk = bank ? &p.tkb : &p.tk;
-          const CUtensorMap* mv = bank ? &p.tvb : &p.tv;
           const int row_b = bank ? bb : b;
-          mbar_expect_tx(bar_kfull(s), nchl * BKV * 16);
-          for (int c = 0; c < nchl; ++c)
-            tma_load_4d(smem_u32(dk + c * BKV * 8), mk, bar_kfull(s), c * 8, h, k0, row_b);
-          mbar_expect_tx(bar_vfull(s), nchl * BKV * 16);
-          for (int c = 0; c < nchl; ++c)
-            tma_load_4d(smem_u32(dv + c * BKV * 8), mv, bar_vfull(s), c * 8, h, k0, row_b);
+          mbar_expect_tx(bar_kfull(s), TL::KV_BYTES);
+          tma_load_5d(smem_u32(dk), bank ? &p.tkb : &p.tk, bar_kfull(s), 0, k0, 0, h, row_b);
+          mbar_expect_tx(bar_vfull(s), TL::KV_BYTES);
+          tma_load_5d(smem_u32(dv), bank ? &p.tvb : &p.tv, bar_vfull(s), 0, k0, 0, h, row_b);
         }
       } else {
         const size_t rows = bank ? a.sbank : a.skv;
@@ -208,7 +329,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         *x = __float2bfloat16(__bfloat162float(*x) * qm);
       }
       fence_async_smem();
-      warpgroup_sync(wg);
+      named_sync(1 + wg, 128);
     }
     const float mult = a.scale_log2;  // RUNMAX: the logits' multiplier
     float bnd[2] = {0.f, 0.f};
@@ -224,116 +345,67 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
     float m[2] = {neg_inf(), neg_inf()};
     float l[2] = {0.f, 0.f};  // per-lane partial sums; reduced at the end
+    float alpha[2];
+    float sc[BKV / 2];
+    uint32_t pa[BKV / 16][4];
 
     const uint32_t q_base = smem_u32(sQ) + wg * WG_ROWS * 16;
-    for (int t = 0; t < n_tiles; ++t) {
-      const int s = t % STAGES;
-      const uint32_t parity = (t / STAGES) & 1;
-      const bool bank = t >= n0;
-      const int k0 = (bank ? t - n0 : t) * BKV;
-      const int len = bank ? a.sbank : len0;
-      const uint32_t k_base = smem_u32(sK + s * BKV * DP);
-      const uint32_t v_base = smem_u32(sV + s * BKV * DP);
+    auto k_base = [&](int s) { return smem_u32(sK + s * BKV * DP); };
+    auto v_base = [&](int s) { return smem_u32(sV + s * BKV * DP); };
+    auto tile_k0 = [&](int t) { return (t >= n0 ? t - n0 : t) * BKV; };
+    auto tile_len = [&](int t) { return t >= n0 ? a.sbank : len0; };
+    // ping-pong: issue products on this warpgroup's turn, then hand it on
+    const int my_turn = PING_BAR + wg, other_turn = PING_BAR + 1 - wg;
 
-      // ---- S = Q K^T
-      float sc[BKV / 2];
-#pragma unroll
-      for (int i = 0; i < BKV / 2; ++i) sc[i] = 0.f;
-      mbar_wait(bar_kfull(s), parity);
+    // Phase t issues S_t = Q K_t^T (t < n) and O += P_{t-1} V_{t-1} (t > 0):
+    // n + 1 phases, each taken on this warpgroup's turn.  Warpgroup 0 goes
+    // first; warpgroup 1 hands the turn back after each phase but its last,
+    // so every arrival meets a sync.
+    if (n_tiles > 0) {
+      if (wg == 1) named_arrive(PING_BAR, 2 * 128);
+
+      // phase 0: S_0 and its softmax
+      mbar_wait(bar_kfull(0), 0);
+      named_sync(my_turn, 2 * 128);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_ss<BKV>(sc, make_desc(q_base + kk * 2 * BQ * 16, BQ * 16, 128),
-                      make_desc(k_base + kk * 2 * BKV * 16, BKV * 16, 128), kk > 0);
-      wgmma_commit();
-      wgmma_wait_all();
+      issue_qk<DP, BKV>(sc, q_base, k_base(0));
+      named_arrive(other_turn, 2 * 128);
+      wgmma_wait<0>();
       fence_regs<BKV / 2>(sc);
+      softmax_tile<BKV, MODE>(sc, m, l, alpha, tile_k0(0), tile_len(0), quad, mult, bnd);
+      rescale_pack<DP, BKV, MODE>(o, pa, sc, alpha);
 
-      // ---- softmax; register 4g + 2i + j holds row r0 + 8i, column
-      // 8g + 2 quad + j of the tile
-      // (RUNMAX: the max of the unscaled logits, scale > 0; m is scaled)
-      const bool ragged = k0 + BKV > len;
-      float mx[2] = {neg_inf(), neg_inf()};
-#pragma unroll
-      for (int g = 0; g < BKV / 8; ++g)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            float x = sc[4 * g + 2 * i + j];
-            if (ragged && k0 + 8 * g + 2 * quad + j >= len) x = neg_inf();
-            sc[4 * g + 2 * i + j] = x;
-            if (MODE == RUNMAX) mx[i] = fmaxf(mx[i], x);
-          }
-      float alpha[2] = {1.f, 1.f};
-      if (MODE == RUNMAX) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-          const float m_new = fmaxf(m[i], mx[i] * mult);  // finite: column k0 is valid
-          alpha[i] = ex2(m[i] - m_new);
-          m[i] = m_new;
-          l[i] *= alpha[i];
-        }
+      for (int t = 1; t < n_tiles; ++t) {
+        const int s = t % STAGES, sp = (t - 1) % STAGES;
+        mbar_wait(bar_kfull(s), (t / STAGES) & 1);
+        mbar_wait(bar_vfull(sp), ((t - 1) / STAGES) & 1);
+        named_sync(my_turn, 2 * 128);
+        fence_regs<DP / 2>(o);
+        wgmma_fence();
+        issue_qk<DP, BKV>(sc, q_base, k_base(s));
+        issue_pv<DP, BKV>(o, pa, v_base(sp));
+        named_arrive(other_turn, 2 * 128);
+        wgmma_wait<1>();  // S_t alone (ptxas places the PV wait early: see above)
+        fence_regs<BKV / 2>(sc);
+        softmax_tile<BKV, MODE>(sc, m, l, alpha, tile_k0(t), tile_len(t), quad, mult, bnd);
+        wgmma_wait<0>();
+        fence_regs<DP / 2>(o);
+        fence_regs<BKV / 4>(&pa[0][0]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_empty(sp));
+        rescale_pack<DP, BKV, MODE>(o, pa, sc, alpha);
       }
-#pragma unroll
-      for (int g = 0; g < BKV / 8; ++g)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const float x = sc[4 * g + 2 * i + j];
-            float pr;
-            if (MODE == RUNMAX) {
-              pr = ex2(fmaf(x, mult, -m[i]));
-              l[i] += pr;  // the unrounded p
-            } else if (MODE == NOSHIFT_E) {
-              pr = round_as<bf16>(ex2(x * kLog2e));  // expf's long sequence spills
-              l[i] += pr;  // the rounded p
-            } else {
-              pr = ex2(MODE == BOUNDED_2 ? x - bnd[i] : x);
-              l[i] += pr;  // the unrounded p
-            }
-            sc[4 * g + 2 * i + j] = pr;
-          }
-      if (MODE == RUNMAX) {
-#pragma unroll
-        for (int g = 0; g < DP / 8; ++g)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            o[4 * g + 2 * i] *= alpha[i];
-            o[4 * g + 2 * i + 1] *= alpha[i];
-          }
-      }
-      // P (bf16) as wgmma A fragments, k-step kk = keys [16 kk, 16 kk + 16)
-      uint32_t pa[BKV / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 
-      // ---- O += P V
-      mbar_wait(bar_vfull(s), parity);
+      // phase n: the last PV product
+      const int sl = (n_tiles - 1) % STAGES;
+      mbar_wait(bar_vfull(sl), ((n_tiles - 1) / STAGES) & 1);
+      named_sync(my_turn, 2 * 128);
       fence_regs<DP / 2>(o);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-#pragma unroll
-        for (int n = 0; n < DP / 64; ++n)
-          wgmma_rs<64>(o + 32 * n, pa[kk],
-                       make_desc(v_base + kk * 256 + n * 8 * BKV * 16, 128, BKV * 16));
-        if constexpr (DP % 64 != 0)
-          wgmma_rs<DP % 64>(
-              o + 32 * (DP / 64), pa[kk],
-              make_desc(v_base + kk * 256 + (DP / 64) * 8 * BKV * 16, 128, BKV * 16));
-      }
-      wgmma_commit();
-      wgmma_wait_all();
+      issue_pv<DP, BKV>(o, pa, v_base(sl));
+      if (wg == 0) named_arrive(other_turn, 2 * 128);
+      wgmma_wait<0>();
       fence_regs<DP / 2>(o);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bar_empty(s));
     }
 
     // ---- epilogue
@@ -343,6 +415,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     }
     bf16* go = static_cast<bf16*>(a.o) + static_cast<size_t>(b) * a.sq * ld + h * d;
+    // two columns a store where d is even (rows and the head slice then
+    // start on 4 bytes)
+    const bool pairs = (d % 2 == 0) && (reinterpret_cast<uintptr_t>(a.o) & 3) == 0;
     bool bad = false;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -360,18 +435,27 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (MODE != BOUNDED_2) bad |= !isfinite(l[i]);
       }
 #pragma unroll
-      for (int g = 0; g < DP / 8; ++g)
+      for (int g = 0; g < DP / 8; ++g) {
+        const int col = 8 * g + 2 * quad;
+        if (col >= d) continue;
+        float x[2];
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          const int col = 8 * g + 2 * quad + j;
-          if (col >= d) continue;
           const float acc = o[4 * g + 2 * i + j];
-          const float x = MODE == RUNMAX ? acc * inv : acc / safe;
+          x[j] = MODE == RUNMAX ? acc * inv : acc / safe;
+          if (col + j >= d) continue;
           // K7 tests the stored output, K2u the float32 one before the store
-          if (MODE == NOSHIFT_E) bad |= !isfinite(round_as<bf16>(x));
-          if (MODE == UNSHIFTED_2) bad |= !isfinite(x);
-          go[static_cast<size_t>(r) * ld + col] = __float2bfloat16(x);
+          if (MODE == NOSHIFT_E) bad |= !isfinite(round_as<bf16>(x[j]));
+          if (MODE == UNSHIFTED_2) bad |= !isfinite(x[j]);
         }
+        bf16* dst = go + static_cast<size_t>(r) * ld + col;
+        if (pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x[0], x[1]);
+        } else {
+          dst[0] = __float2bfloat16(x[0]);
+          if (col + 1 < d) dst[1] = __float2bfloat16(x[1]);
+        }
+      }
     }
     if (MODE != RUNMAX) {
       if (__any_sync(0xffffffffu, bad) && lane == 0) atomicOr(a.guard, 1);
@@ -385,13 +469,14 @@ cudaError_t launch(Sm90Params& p, cudaStream_t stream) {
   using TL = Tile<DP>;
   const FlashArgs& a = p.a;
   if (p.tma) {
+    const int n = TL::NCH, bkv = TL::BKV;
     const bool ok =
-        encode_map(&p.tq, a.q, a.batch, a.sq, a.heads, a.d, BQ) &&
-        encode_map(&p.tk, a.k, a.batch, a.skv, a.heads, a.d, TL::BKV) &&
-        encode_map(&p.tv, a.v, a.batch, a.skv, a.heads, a.d, TL::BKV) &&
+        encode_chunk_map(&p.tq, a.q, a.batch, a.sq, a.heads, a.d, BQ, n) &&
+        encode_chunk_map(&p.tk, a.k, a.batch, a.skv, a.heads, a.d, bkv, n) &&
+        encode_chunk_map(&p.tv, a.v, a.batch, a.skv, a.heads, a.d, bkv, n) &&
         (a.kb == nullptr ||
-         (encode_map(&p.tkb, a.kb, a.batch / a.rep, a.sbank, a.heads, a.d, TL::BKV) &&
-          encode_map(&p.tvb, a.vb, a.batch / a.rep, a.sbank, a.heads, a.d, TL::BKV)));
+         (encode_chunk_map(&p.tkb, a.kb, a.batch / a.rep, a.sbank, a.heads, a.d, bkv, n) &&
+          encode_chunk_map(&p.tvb, a.vb, a.batch / a.rep, a.sbank, a.heads, a.d, bkv, n)));
     if (!ok) return cudaErrorInvalidValue;
   }
   cudaError_t err = set_smem(flash_fwd_sm90_kernel<DP, MODE>, TL::SMEM);
@@ -412,15 +497,32 @@ cudaError_t launch_mode(Sm90Params& p, int mode, cudaStream_t stream) {
   }
 }
 
+// The block at head tile DP, as the launch takes it: {DP, BKV, stages,
+// dynamic shared memory, threads, blocks an SM (the occupancy API)}.
+template <int DP>
+cudaError_t shape_of(int* shape) {
+  using TL = Tile<DP>;
+  cudaError_t err = set_smem(flash_fwd_sm90_kernel<DP, RUNMAX>, TL::SMEM);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, flash_fwd_sm90_kernel<DP, RUNMAX>, THREADS, TL::SMEM);
+  const int out[6] = {DP, TL::BKV, TL::STAGES, TL::SMEM, THREADS, blocks};
+  for (int i = 0; i < 6; ++i) shape[i] = out[i];
+  return err;
+}
+
 }  // namespace
 
 cudaError_t flash_fwd_sm90(const FlashArgs& a, int mode, cudaStream_t stream) {
   Sm90Params p = {};
   p.a = a;
   // TMA needs 16-byte strides and bases: the head slice (d * 2 bytes) and
-  // every row (heads * d * 2 bytes) start on 16 bytes only if d % 8 == 0
+  // every row (heads * d * 2 bytes) start on 16 bytes only if d % 8 == 0;
+  // and a map of no rows is refused (no keys: every row fully masked)
   p.tma = a.d % 8 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
-          (a.kb == nullptr || (aligned16(a.kb) && aligned16(a.vb)));
+          a.sq > 0 && a.skv > 0 &&
+          (a.kb == nullptr || (aligned16(a.kb) && aligned16(a.vb) && a.sbank > 0));
   if (p.tma && encode_tiled() == nullptr) return cudaErrorNotSupported;
 #define ANIPORTRAIT_CASE(DP) return launch_mode<DP>(p, mode, stream);
   ANIPORTRAIT_HEAD_DIM_SWITCH(a.d, ANIPORTRAIT_CASE)
@@ -428,3 +530,12 @@ cudaError_t flash_fwd_sm90(const FlashArgs& a, int mode, cudaStream_t stream) {
 }
 
 }  // namespace aniportrait
+
+// The bf16 forward's block at head dim d (no launch): int[6] as shape_of
+// fills it.  Returns a cudaError_t code.
+extern "C" int aniportrait_flash_sm90_shape(int d, int* shape) {
+  using namespace aniportrait;
+#define ANIPORTRAIT_CASE(DP) return static_cast<int>(shape_of<DP>(shape));
+  ANIPORTRAIT_HEAD_DIM_SWITCH(d, ANIPORTRAIT_CASE)
+#undef ANIPORTRAIT_CASE
+}

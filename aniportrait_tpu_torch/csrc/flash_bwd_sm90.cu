@@ -261,7 +261,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_ss<BQ>(dpt, make_desc(v_base + kk * 2 * BKV * 16, BKV * 16, 128),
                    make_desc(do_base + kk * 2 * BQ * 16, BQ * 16, 128), kk > 0);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs<BQ / 2>(st);
     fence_regs<BQ / 2>(dpt);
 
@@ -336,7 +336,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_ss_tt<N0>(dq, make_desc(ds_base + kk * 256, 128, BKV * 16),
                       make_desc(k_base + kk * 256, 128, BKV * 16), kk > 0);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs<DP / 2>(dv);
     fence_regs<DP / 2>(dk);
     fence_regs<N0 / 2>(dq);
@@ -360,7 +360,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_ss_tt<N1>(dq1, make_desc(ds_base + kk * 256, 128, BKV * 16),
                         make_desc(k_base + kk * 256 + 8 * BKV * 16, 128, BKV * 16), kk > 0);
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs<N1 / 2>(dq1);
       stage_dq<DP, N1>(sDQ, dq1, 64, warp, lane);
     }

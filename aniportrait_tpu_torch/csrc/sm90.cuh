@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels,
 // the flash forward (flash_attn_sm90.cu) and the flash backward
 // (flash_bwd_sm90.cu): mbarrier and TMA helpers with the 10 s wait trap,
-// wgmma shared-memory descriptors and wrappers (no swizzle: core matrices of
-// 8 rows x 16 bytes), the producer warp's scalar tile loader for head dims
-// TMA cannot take, and the host's (d, heads, S, B) tensor-map encoding; and
+// named barriers, wgmma shared-memory descriptors and wrappers (no swizzle:
+// core matrices of 8 rows x 16 bytes), the producer warp's scalar tile
+// loader for head dims TMA cannot take, and the host's tensor-map encodings
+// ((d, heads, S, B) in 8-column boxes; (8, S, d / 8, heads, B) for one box a
+// whole tile); and
 // for the short-sequence kernels (K3, K6, K9: seq_attn_mma.cuh) the
 // ldmatrix, mma.sync and cp.async wrappers.
 #pragma once
@@ -71,15 +73,29 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// one box of a 5-D map (encode_chunk_map: a whole tile in one copy)
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+      "r"(bar)
+      : "memory");
+}
+
 // generic-proxy shared-memory writes made visible to wgmma / TMA (async proxy)
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// barrier 1 + wg over the 128 threads of consumer warpgroup wg
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  if (wg == 0) asm volatile("bar.sync 1, 128;\n" ::: "memory");
-  else asm volatile("bar.sync 2, 128;\n" ::: "memory");
+// named barrier `id` over `threads` threads: bar.sync waits (and counts this
+// thread), bar.arrive counts it without waiting
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // wgmma shared-memory descriptor, no swizzle: core matrices of 8 rows x 16
@@ -96,8 +112,11 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N committed groups of this warpgroup are in flight
+// (groups complete in the order they were committed)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // keep the compiler from moving accumulator reads or writes across a wgmma
@@ -106,6 +125,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 #define ANIPORTRAIT_F8(d, i)                                                          \
@@ -383,6 +407,26 @@ inline bool encode_map(CUtensorMap* map, const void* base, int batch, int rows, 
   const cuuint32_t box[4] = {8, 1, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the same tensor as the 5-D map (8, rows, d / 8, heads, batch): one box
+// {8, box_rows, chunks, 1, 1} lands as `chunks` blocks of box_rows rows x 16
+// bytes, chunk c at c * box_rows * 16 bytes -- the core-matrix layout of
+// copy_tile -- with chunks past d / 8 and rows past `rows` zero-filled.
+// Needs d % 8 == 0 (16-byte strides).
+inline bool encode_chunk_map(CUtensorMap* map, const void* base, int batch, int rows, int heads,
+                             int d, int box_rows, int chunks) {
+  const cuuint64_t row = static_cast<cuuint64_t>(heads) * d * 2;
+  const cuuint64_t dims[5] = {8, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(d / 8),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[4] = {row, 16, static_cast<cuuint64_t>(d) * 2, rows * row};
+  const cuuint32_t box[5] = {8, static_cast<cuuint32_t>(box_rows),
+                             static_cast<cuuint32_t>(chunks), 1, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -69,6 +69,8 @@ _SIGNATURES = {
                                    _I, _I, _I, _P],
     # d, mode, lse, int[5] out: the 3xTF32 forward's block (no launch)
     "aniportrait_flash_tf32x3_shape": [_I, _I, _I, _P],
+    # d, int[6] out: the bf16 forward's block (no launch)
+    "aniportrait_flash_sm90_shape": [_I, _P],
 }
 
 

@@ -105,8 +105,22 @@ def backward_form(dtype, d: int) -> str:
 def wgmma_block_kv(d: int) -> int:
     """Keys per online-softmax step of the tensor-core form at head dim
     ``d`` (``Tile<DP>::BKV`` in ``csrc/flash_attn_sm90.cu``): the tile
-    :func:`plain_attention_tiled` takes to round as that kernel does."""
-    return 128 if d <= 128 else 64
+    :func:`plain_attention_tiled` takes to round as that kernel does: 128
+    up to a head tile (d rounded up to 16) of 80, 64 above, where two tiles
+    of 128 keys and O no longer share the registers."""
+    return 128 if d <= 80 else 64
+
+
+def wgmma_shape(d: int) -> dict:
+    """The block the bf16 tensor-core forward launches at head dim ``d``,
+    as its source reports it without launching: ``dp`` (the head tile),
+    ``block_kv``, ``stages`` (of the K/V ring), ``smem_bytes``, ``threads``
+    and ``blocks_per_sm`` (CUDA's occupancy API: registers and shared
+    memory).  Builds the kernels; needs the card."""
+    shape = (ctypes.c_int * 6)()
+    build.check(build.library().aniportrait_flash_sm90_shape(d, shape), "wgmma_shape")
+    keys = ("dp", "block_kv", "stages", "smem_bytes", "threads", "blocks_per_sm")
+    return dict(zip(keys, shape))
 
 
 def tf32x3_block_kv(d: int) -> int:

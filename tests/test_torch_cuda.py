@@ -53,12 +53,14 @@ def rand():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", FLASH_DIMS)
-@pytest.mark.parametrize("sq,skv", [(70, 90), (37, 1)])
+@pytest.mark.parametrize("sq,skv", [(70, 90), (37, 1), (200, 1300)])
 def test_flash_entries_match_plain(rand, dtype, d, sq, skv):
     """K2, K1 (a bank of 50 keys, rep 2) and K4 (drop_tail, kv_split 45 or
-    1); 37 queries fill less than one tile, 1 and 90 keys leave ragged
-    tiles.  bf16 runs the tensor-core form and also meets the tiled
-    rounding contract's version."""
+    1); 37 queries fill less than one tile, 1, 90 and 1300 keys leave ragged
+    tiles (1300: 11 or 21 tiles, past every depth of the bf16 form's ring),
+    200 queries a ragged second block.  bf16 runs the tensor-core form (its
+    counter moves once a call) and also meets the tiled rounding contract's
+    version."""
     h = 2
     before, before_tf32 = flash.tensor_core_launches, flash.tf32x3_launches
     q, k, v = rand(dtype, 3, sq, h * d), rand(dtype, 3, skv, h * d), rand(dtype, 3, skv, h * d)
@@ -86,6 +88,85 @@ def test_flash_entries_match_plain(rand, dtype, d, sq, skv):
     if form == "tf32x3":
         torch.testing.assert_close(
             got, flash.plain_attention_tf32x3(q4, k4, v4, drop, split), **TOL[dtype])
+
+
+def _bf16_close(got, ref):
+    """chip_smoke.py's bf16 tolerance: max abs error within 2^-6 of the
+    largest |plain output| (two bf16 steps), rel-L2 within 5e-3."""
+    diff = got.float() - ref.float()
+    assert torch.isfinite(got).all()
+    assert diff.abs().max().item() <= 2.0 ** -6 * ref.float().abs().max().item()
+    assert (diff.norm() / ref.float().norm()).item() <= 5e-3
+
+
+# the bf16 forward at the main paths' shapes (heads of 8, token layout):
+# K1 as the cond half calls it (rep 16; here a bank of 777 keys, ragged),
+# K2 at 64x64 (S = 4096, d = 40) and at 32x32 over self + bank (d = 80), K4
+# at the PoseGuider's d = 88 with drop_tail / kv_split
+MAIN_PATH_CASES = {
+    "K1-rep16": dict(b=16, sq=300, skv=300, sbank=777, c=320, rep=16),
+    "K2-4096": dict(b=2, sq=4096, skv=4096, c=320),
+    "K2-d80": dict(b=2, sq=1024, skv=2048, c=640),
+    "K4-drop": dict(b=4, sq=1024, skv=2048, c=16 * 88, h=16, split=1024),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(MAIN_PATH_CASES))
+def test_flash_main_path_shapes(rand, case):
+    """Each main-path call of the bf16 forward against the exact softmax and
+    the tiled rounding contract at the kernel's tile, at the tolerance of
+    ``test_flash_entries_match_plain``'s bf16 cases and the smoke's."""
+    x = MAIN_PATH_CASES[case]
+    b, sq, skv, c, h = x["b"], x["sq"], x["skv"], x["c"], x.get("h", 8)
+    d = c // h
+    q, k, v = rand(torch.bfloat16, b, sq, c), *(rand(torch.bfloat16, b, skv, c) for _ in "kv")
+    before = flash.tensor_core_launches
+    heads = [t.view(b, t.shape[1], h, d) for t in (q, k, v)]
+    drop = split = None
+    if "sbank" in x:
+        kb, vb = (rand(torch.bfloat16, b // x["rep"], x["sbank"], c) for _ in "kv")
+        got = K.tok_flash_banked(q, k, v, kb, vb, h, x["rep"])
+        heads[1:] = [torch.cat([t, tb.repeat_interleave(x["rep"], 0)], 1).view(b, -1, h, d)
+                     for t, tb in ((k, kb), (v, vb))]
+    elif "split" in x:
+        drop, split = torch.tensor([True, False, True, False], device="cuda"), x["split"]
+        got = K.flash_attention(*heads, drop, split).reshape(b, sq, c)
+    else:
+        got = K.tok_flash(q, k, v, h)
+    assert flash.tensor_core_launches == before + 1
+    exact = flash.plain_attention_bshd(*heads, drop, split).reshape(b, sq, c)
+    torch.testing.assert_close(got, exact, **TOL[torch.bfloat16])
+    _bf16_close(got, exact)
+    tiled = flash.plain_attention_tiled(*heads, flash.wgmma_block_kv(d), drop, split)
+    _bf16_close(got, tiled.reshape(b, sq, c))
+
+
+@pytest.mark.cuda
+def test_flash_forward_repeats(rand):
+    """Two calls on the same inputs give the same bits: each row's sums run
+    in one order, in registers (K1 over 11 own tiles and a bank; K5a with
+    its LSE)."""
+    q, k, v = (rand(torch.bfloat16, 4, 1300, 320) for _ in range(3))
+    kb, vb = (rand(torch.bfloat16, 2, 500, 320) for _ in range(2))
+    assert torch.equal(K.tok_flash_banked(q, k, v, kb, vb, 8, 2),
+                       K.tok_flash_banked(q, k, v, kb, vb, 8, 2))
+    q4, k4, v4 = (t.view(4, 1300, 8, 40) for t in (q, k, v))
+    (o1, l1), (o2, l2) = (K.flash_attention_fwd_lse(q4, k4, v4) for _ in range(2))
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+@pytest.mark.cuda
+def test_wgmma_block_matches_the_source(rand):  # rand: skips without a card
+    """``flash.wgmma_block_kv`` (the tile of the plain version) is the block
+    the bf16 kernel launches at every head dim; the K/V ring has two stages
+    or more in 227 KB, and each block fits an SM."""
+    for d in range(1, flash.MAX_HEAD_DIM + 1):
+        shape = flash.wgmma_shape(d)
+        assert shape["block_kv"] == flash.wgmma_block_kv(d), (d, shape)
+        assert shape["dp"] == -(-d // 16) * 16 and shape["threads"] == 288, (d, shape)
+        assert shape["stages"] >= 2 and shape["smem_bytes"] <= 232448, (d, shape)
+        assert shape["blocks_per_sm"] >= 1, (d, shape)
 
 
 @pytest.mark.cuda
@@ -150,15 +231,6 @@ def test_ctg_packed_matches_plain(rand, dtype, seq, heads, d):
                                small_seq.plain_ctg_packed(*x, seq, heads, scale),
                                **TOL[dtype])
     assert K.ctg_packed.launches == before + 1
-
-
-def _bf16_close(got, ref):
-    """chip_smoke.py's bf16 tolerance: max abs error within 2^-6 of the
-    largest |plain output| (two bf16 steps), rel-L2 within 5e-3."""
-    diff = got.float() - ref.float()
-    assert torch.isfinite(got).all()
-    assert diff.abs().max().item() <= 2.0 ** -6 * ref.float().abs().max().item()
-    assert (diff.norm() / ref.float().norm()).item() <= 5e-3
 
 
 @pytest.mark.cuda
@@ -374,11 +446,13 @@ def test_windowed_motion_module_matches_cpu(rand, wrap):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", FLASH_DIMS)
 @pytest.mark.parametrize("drop", [False, True])
-def test_flash_fwd_lse_and_bwd_match_plain(rand, dtype, d, drop):
+@pytest.mark.parametrize("sq,skv", [(70, 90), (300, 1100)])
+def test_flash_fwd_lse_and_bwd_match_plain(rand, dtype, d, drop, sq, skv):
     """K5a (out, lse) and K5b (dq, dk, dv); d >= 160 takes the backward's
-    32-row tiles.  Gradients are held to the output's tolerance scaled by
-    their largest magnitude."""
-    b, sq, skv, h = 3, 70, 90, 2
+    32-row tiles; 300 x 1100 runs several query blocks and key tiles, all
+    ragged.  Gradients are held to the output's tolerance scaled by their
+    largest magnitude."""
+    b, h = 3, 2
     q, k, v, do = (rand(dtype, b, s, h, d) for s in (sq, skv, skv, sq))
     mask = (torch.tensor([True, False, True], device="cuda"), 45) if drop else (None, None)
     out, lse = K.flash_attention_fwd_lse(q, k, v, *mask)
@@ -393,6 +467,20 @@ def test_flash_fwd_lse_and_bwd_match_plain(rand, dtype, d, drop):
         tol = TOL[dtype]
         torch.testing.assert_close(g.float(), r.float(), atol=tol["atol"] * scale,
                                    rtol=tol["rtol"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 20, 88])
+def test_flash_fwd_lse_of_rows_without_keys(rand, d):
+    """A row with no key to attend to is fully masked: K5a gives it output
+    0 and LSE 0, as the plain version and the TPU kernel do (d = 20 takes
+    the scalar loads)."""
+    q = rand(torch.bfloat16, 2, 70, 2, d)
+    k = rand(torch.bfloat16, 2, 0, 2, d)
+    out, lse = K.flash_attention_fwd_lse(q, k, k)
+    ref_out, ref_lse = flash.plain_attention_fwd_lse(q, k, k)
+    assert torch.equal(out, torch.zeros_like(q)) and torch.equal(out, ref_out)
+    assert torch.equal(lse, torch.zeros_like(lse)) and torch.equal(lse, ref_lse)
 
 
 @pytest.mark.cuda

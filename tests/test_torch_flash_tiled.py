@@ -21,6 +21,7 @@ import torch
 
 import jax.numpy as jnp
 
+from aniportrait_tpu_torch.ops import kernels as K
 from aniportrait_tpu_torch.ops.kernels import flash
 
 
@@ -67,3 +68,50 @@ def test_forward_form_is_a_function_of_dtype_and_head_dim():
         flash.forward_form(torch.float16, 40)
     with pytest.raises(ValueError):
         flash.forward_form(torch.bfloat16, 257)
+
+
+@pytest.mark.parametrize("d", [1, 8, 20, 40, 48, 64, 80, 88, 96, 128, 129, 160, 208, 256])
+def test_wgmma_tile_choice(d):
+    """``wgmma_block_kv`` takes 128 keys up to a head tile of 80 (d rounded
+    up to 16: S, P and O fit the registers beside each other) and 64 above,
+    and the tiled version at that tile stays within the smoke's bf16
+    tolerance of the exact softmax (the card tests hold the kernel's own
+    block to it)."""
+    bkv = flash.wgmma_block_kv(d)
+    assert bkv == (128 if -(-d // 16) * 16 <= 80 else 64)
+    q, k, v = _bf16_inputs(d, 1, 33, 200, 2, d)
+    got = flash.plain_attention_tiled(q, k, v, bkv)
+    exact = flash.plain_attention_bshd(q, k, v).float()
+    diff = got.float() - exact
+    assert diff.abs().max() <= 2.0 ** -6 * exact.abs().max()
+    assert diff.norm() / exact.norm() <= 5e-3
+
+
+@pytest.mark.parametrize("d,drop", [(40, False), (80, True), (88, True)])
+def test_tiled_contract_at_the_kernels_tile(d, drop):
+    """At the kernel's own tile (``wgmma_block_kv``: 128 keys at d = 40 and
+    80, 64 at 88) the tiled version stays within the smoke's bf16 tolerance
+    of the exact softmax; 300 keys leave a ragged last tile either way."""
+    b, sq, skv, h = 2, 70, 300, 2
+    q, k, v = _bf16_inputs(11, b, sq, skv, h, d)
+    mask, split = (torch.tensor([True, False]), 90) if drop else (None, None)
+    got = flash.plain_attention_tiled(q, k, v, flash.wgmma_block_kv(d), mask, split)
+    exact = flash.plain_attention_bshd(q, k, v, mask, split).float()
+    diff = got.float() - exact
+    assert diff.abs().max() <= 2.0 ** -6 * exact.abs().max()
+    assert diff.norm() / exact.norm() <= 5e-3
+
+
+def test_reset_launch_counts_zeroes_the_flash_counters():
+    """``reset_launch_counts`` zeroes the flash forms' counters with the
+    kernels' launches; CPU calls run the plain versions and move none."""
+    flash.tensor_core_launches, flash.tf32x3_launches = 7, 9
+    flash.tensor_core_bwd_launches = 5
+    K.tok_flash.launches = 3
+    K.reset_launch_counts()
+    assert (flash.tensor_core_launches, flash.tf32x3_launches,
+            flash.tensor_core_bwd_launches) == (0, 0, 0)
+    assert set(K.launch_counts().values()) == {0}
+    q = torch.randn(1, 5, 2 * 40).to(torch.bfloat16)
+    K.tok_flash(q, q, q, 2)
+    assert flash.tensor_core_launches == 0 and K.launch_counts()["K2"] == 0
